@@ -5,23 +5,38 @@
 
 Each phase prints one JSON line:
 
-``build``       compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
-                with nvcc for sm_90a (into the ignored ``build/kernels/``);
+``build``       compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+                with nvcc for sm_90a (into the ignored ``build/kernels/``),
+                one nvcc per source, all started together;
 ``kernels``     each kernel against its plain PyTorch version on the card,
                 exact equality: a 12-star-clique schedule with 8 members,
                 injected cost ties, exclusive seeds and source-less leaves,
-                and a dense layer tile at the 20-star chain's tile shape;
+                and a dense layer tile at the 20-star chain's tile shape for
+                the DP kernels; for the four statistics kernels, inputs at
+                or above the ``stats`` phase's largest extents and ragged
+                ones (ties, duplicate build keys, empty lists, ``seg = -1``
+                rows);
 ``fedbench``    FedBench-like federation at scale 1.0: statistics, planning
                 with the default optimizer (torch DP on cuda), execution;
                 answers equal ``naive_evaluate`` and plans equal the numpy
                 DP backend's;
 ``large_star``  the four large-star DP sweeps (12-clique B=8 and 14-clique
                 B=1 resident, 20-chain B=4 and 16-tree B=8 tiled), trees
-                equal the numpy backend's, with device timings.
+                equal the numpy backend's, with device timings;
+``stats``       the statistics path on a FedBench-like federation at scale
+                100 (11.1 M triples): per source, the device CS signatures
+                and predicate bitmaps against the host CS statistics; then
+                ``compute_federated_cps_ops`` for every ordered source pair:
+                its signature probe against ``candidate_cs_pairs`` and its
+                federated CP counts, through ``intersect_count`` and through
+                ``match_counts``, against ``build_federated_stats``'s;
+                then, outside the counted window, each statistics kernel
+                against its plain version on its largest main-path input,
+                with device times of calls queued back to back.
 
-The main path is ``fedbench`` and ``large_star`` planning and executing once,
-with the launch counts set to 0 just before and read just after; their
-comparisons with the numpy backend and their timings run after that read, so
+The main path is ``fedbench``, ``large_star`` and ``stats`` running once,
+with the launch counts set to 0 just before and read just after; the plan
+comparisons with the numpy backend and all timings run after that read, so
 their own launches are not counted.  Then the card's name and power limit,
 one JSON line with every kernel's launches on the main path, error against
 its plain version, time and bound, and last ``{"ok": true, "device": ...}``.
@@ -47,6 +62,14 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 PRICE_OPS = 10            # float64 operations to price one (pair, member)
+
+STATS_KERNELS = (        # (kernel, the TPU kernel's pallas_call it replaces)
+    ("seg_bitmap", "src/repro/kernels/seg_bitmap.py:53"),
+    ("summary_probe", "src/repro/kernels/summary_probe.py:50"),
+    ("sorted_intersect", "src/repro/kernels/sorted_intersect.py:48"),
+    ("join_count", "src/repro/kernels/join_count.py:39"))
+STATS_SCALE = 100.0       # fedbench_like_spec scale of the stats phase
+INT32_MAX = 2**31 - 1
 
 LARGE_STAR = (("clique", 12, 8, "resident"), ("clique", 14, 1, "resident"),
               ("chain", 20, 4, "tiled"), ("tree", 16, 8, "tiled"))
@@ -81,6 +104,35 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return statistics.median(ts)
+
+
+def queued_ms(fn, k: int = 20) -> "tuple[float, bool]":
+    """Device time of one call of ``fn`` in ms: ``k`` calls queued behind a
+    device-side sleep and timed with CUDA events from the sleep's end, so
+    the card runs them back to back while the host's per-call work
+    (argument checks, allocation, the launch) overlaps the sleep.  Returns
+    ``(ms, queued)``; ``queued`` is false when the host could not enqueue
+    all ``k`` calls before the sleep ended (``fn`` waits on the card, as a
+    data-dependent size does), and the interval then holds host time too."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (20_000_000, 200_000_000, 1_000_000_000):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        queued = host_ms < 0.9 * ev[0].elapsed_time(ev[1])
+        if queued:
+            break
+    return ev[1].elapsed_time(ev[2]) / k, queued
 
 
 def max_abs_err(got, want) -> float:
@@ -159,17 +211,17 @@ def member_selection(sel, b: int):
 # --------------------------------------------------------------------------
 
 def phase_build(state: dict) -> None:
-    from repro_torch.kernels import dp_layer as K
+    from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = K.build_kernels()
+    built = build.build_kernels()
     secs = time.perf_counter() - t0
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
-             for k, v in K.BUILD_LOG.items()}
+             for k, v in build.BUILD_LOG.items()}
     state["smi"] = nvidia_smi()
     emit("build", seconds=secs, built=built, nvidia_smi=state["smi"],
-         build_dir=str(K.build_dir()), ptxas=ptxas)
+         build_dir=str(build.build_dir()), ptxas=ptxas)
 
 
 def phase_kernels(state: dict) -> None:
@@ -178,10 +230,11 @@ def phase_kernels(state: dict) -> None:
 
     from repro_torch.core import join_order as jo
     from repro_torch.kernels import dp_layer as K
+    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.rdf.shapes import shaped_planning_inputs
 
     dev = torch.device(DEVICE)
-    before = dict(K.LAUNCHES)
+    before = dict(LAUNCHES)
 
     # dp_sweep: the 12-clique schedule with 8 members, the seed recipe of
     # the reference's test_dp_sweep_resident_matches_scalar_ref
@@ -244,11 +297,108 @@ def phase_kernels(state: dict) -> None:
     if layer_err != 0.0:
         raise AssertionError(f"dp_layer differs from its plain version: "
                              f"{layer_err}")
-    state["err"] = {"dp_sweep": sweep_err, "dp_layer": layer_err}
+    stats_cases = stats_kernel_cases(dev)
+    state["err"] = {"dp_sweep": sweep_err, "dp_layer": layer_err,
+                    **{k: v["max_abs_err"] for k, v in stats_cases.items()}}
     emit("kernels", dp_sweep={"shape": "clique12", "B": B,
                               "pairs": sched.n_pairs, "max_abs_err": sweep_err},
          dp_layer={"tile": list(shp), "max_abs_err": layer_err},
-         launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES})
+         **stats_cases,
+         launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+
+
+def _sorted_ids(rng, n: int, hi: int, unique: bool):
+    import numpy as np
+
+    if unique:
+        return np.sort(rng.choice(hi, n, replace=False)).astype(np.int32)
+    return np.sort(rng.integers(0, hi, n)).astype(np.int32)
+
+
+def stats_kernel_cases(dev) -> dict:
+    """The four statistics kernels against their plain versions on the card,
+    exact: one case at or above the ``stats`` phase's largest extents (the
+    longest objects list at scale 100, 227,110 entities, against the longest
+    subjects list, 400,000; DBpedia's 3.6 M (s, p) rows over 400,000
+    subjects; a 1000 x 600 signature block of 512 words)
+    and ragged ones: ties, duplicate build keys, unsorted and negative
+    probes, empty lists, int32 wrap-around, ``seg = -1`` and out-of-plane
+    rows, a word count that is no multiple of the tile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import join_count as JC
+    from repro_torch.kernels import seg_bitmap as SB
+    from repro_torch.kernels import sorted_intersect as SI
+    from repro_torch.kernels import summary_probe as SP
+
+    rng = np.random.default_rng(23)
+
+    def up(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+                for x in xs]
+
+    # (a, aw, b, bw): a is also join_count's probe, b its build side
+    lists = [
+        (_sorted_ids(rng, 227_110, 4_000_000, True),
+         rng.integers(1, 100, 227_110), _sorted_ids(rng, 400_000, 4_000_000,
+                                                    False),
+         rng.integers(1, 100, 400_000)),
+        ([5, 5, 7, 7, 7, 9, 2], [1, 2, 3, 4, 5, 6, 7],
+         [2, 5, 5, 5, 7, 8, 9, 9], [1, 1, 2, 3, 5, 8, 13, 21]),
+        (rng.permutation(300) - 50, rng.integers(-9, 9, 300),
+         _sorted_ids(rng, 500, 250, False) - 40, rng.integers(-9, 9, 500)),
+        (np.zeros(1000), np.full(1000, 2**30 + 7), np.zeros(999),
+         np.full(999, 2**29 + 3)),                     # wraps int32
+        ([], [], [1, 2, 3], [1, 1, 1]),
+        ([1, 2, 3], [1, 1, 1], [], []),
+        ([3], [2], [3], [5]),
+    ]
+    si_err = jc_err = 0.0
+    for a, aw, b, bw in lists:
+        ta, taw, tb, tbw = up(a, aw, b, bw)
+        si_err = max(si_err, max_abs_err([SI.sorted_intersect(ta, taw, tb, tbw)],
+                                         [SI.sorted_intersect_plain(ta, taw, tb, tbw)]))
+        jc_err = max(jc_err, max_abs_err([JC.join_count(ta, tb, tbw)],
+                                         [JC.join_count_plain(ta, tb, tbw)]))
+
+    n_big, n_subj = 3_600_000, 400_000
+    seg_big = np.sort(rng.integers(0, n_subj, n_big))
+    seg_big[rng.random(n_big) < 0.3] = -1
+    seg_cases = [
+        (seg_big, rng.integers(0, 128, n_big), n_subj),
+        (rng.integers(-3, 40, 1000), rng.integers(-2, 131, 1000), 35),
+        (np.zeros(5000), np.full(5000, 7), 1),          # one hot cell
+        ([], [], 10), ([0, 1], [3, 4], 0),
+    ]
+    sb_err = 0.0
+    for seg, bkt, n_seg in seg_cases:
+        ts, tk = up(seg, bkt)
+        sb_err = max(sb_err, max_abs_err([SB.seg_bitmap(ts, tk, n_seg)],
+                                         [SB.seg_bitmap_plain(ts, tk, n_seg)]))
+
+    def words(n, w):
+        return rng.integers(-2**31, 2**31, (n, w))
+
+    sig_cases = [(words(1000, 512), words(600, 512)),
+                 (words(7, 512), words(40, 512)),
+                 (words(33, 31), words(65, 31)), (words(1, 1), words(1, 1)),
+                 (words(0, 8), words(5, 8)), (words(4, 0), words(3, 0))]
+    sp_err = 0.0
+    for x, y in sig_cases:
+        tx, ty = up(x, y)
+        sp_err = max(sp_err, max_abs_err([SP.summary_probe(tx, ty)],
+                                         [SP.summary_probe_plain(tx, ty)]))
+    torch.cuda.synchronize()
+    out = {"sorted_intersect": {"cases": len(lists), "max_abs_err": si_err},
+           "join_count": {"cases": len(lists), "max_abs_err": jc_err},
+           "seg_bitmap": {"cases": len(seg_cases), "max_abs_err": sb_err},
+           "summary_probe": {"cases": len(sig_cases), "max_abs_err": sp_err}}
+    for k, v in out.items():
+        if v["max_abs_err"] != 0.0:
+            raise AssertionError(f"{k} differs from its plain version: "
+                                 f"{v['max_abs_err']}")
+    return out
 
 
 def phase_fedbench(state: dict) -> None:
@@ -393,6 +543,7 @@ def phase_large_star(state: dict) -> None:
     ``check_large_star``, outside the counted window."""
     from repro_torch.core import join_order as jo
     from repro_torch.kernels import dp_layer as K
+    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.rdf.shapes import shaped_planning_inputs
 
     cases = []
@@ -407,12 +558,12 @@ def phase_large_star(state: dict) -> None:
         rec = _Recorder(K)
         rec.install()
         before = dict(jo.DP_SWEEP_COUNTERS)
-        l0 = dict(K.LAUNCHES)
+        l0 = dict(LAUNCHES)
         try:
             trees = _plan_large_star(case)
         finally:
             rec.remove()
-        launches = {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES}
+        launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
         ran = {k: jo.DP_SWEEP_COUNTERS[k] - before[k]
                for k in ("resident", "tiled")}
         if ran[mode] != 1 or sum(ran.values()) != 1:
@@ -493,9 +644,273 @@ def check_large_star(state: dict) -> None:
     emit("large_star", nvidia_smi=state["smi"], sweeps=rows)
 
 
+def _cs_checks(cs, dev_cs, n_subj: int, bitmaps, name: str) -> None:
+    """One source's device CS tuple and predicate bitmaps against its host
+    ``CSStats``: subject ids, degrees and wrapping signature sums per
+    subject, zeros past the last subject, and each subject's bitmap equal to
+    ``{p % 128}`` over its CS's predicates."""
+    import numpy as np
+
+    from repro_torch.common.hashing import splitmix64
+
+    subj_ids, sig_sum, deg, _, _ = dev_cs
+    if n_subj != len(cs.ent_ids):
+        raise AssertionError(f"{name}: {n_subj} subjects on the card, "
+                             f"{len(cs.ent_ids)} on the host")
+    sizes = np.diff(cs.indptr)
+    owner = np.repeat(np.arange(cs.n_cs), sizes)
+    with np.errstate(over="ignore"):
+        cs_sig = np.zeros(cs.n_cs, np.uint64)
+        np.add.at(cs_sig, owner, splitmix64(cs.pred_ids.astype(np.uint64)))
+    ids, sums, degs = (t.cpu().numpy() for t in (subj_ids, sig_sum, deg))
+    if not (np.array_equal(ids[:n_subj], cs.ent_ids)
+            and np.array_equal(degs[:n_subj], sizes[cs.ent_cs])
+            and np.array_equal(sums[:n_subj].view(np.uint64),
+                               cs_sig[cs.ent_cs])):
+        raise AssertionError(f"{name}: device CS signatures differ from the "
+                             f"host CS statistics")
+    if ids[n_subj:].any() or sums[n_subj:].any() or degs[n_subj:].any():
+        raise AssertionError(f"{name}: nonzero entries past the last subject")
+    if int(degs.max()) >= 2**24:
+        raise AssertionError(f"{name}: a bucket count could reach 2^24")
+    cs_bm = np.zeros((cs.n_cs, 128), bool)
+    cs_bm[owner, cs.pred_ids % 128] = True
+    if not np.array_equal(bitmaps, cs_bm[cs.ent_cs]):
+        raise AssertionError(f"{name}: predicate bitmaps differ")
+
+
+def _algorithm1_checks(stats, fed_cps) -> None:
+    """Each ordered source pair of ``compute_federated_cps_ops`` against the
+    host statistics: the probe's candidates equal ``candidate_cs_pairs``,
+    the exact checks the build's, and the CP counts from ``intersect_count``
+    and from ``match_counts`` both equal ``build_federated_stats``'s, zeros
+    absent."""
+    import numpy as np
+
+    from repro_torch.core.summaries import candidate_cs_pairs
+
+    for (i, j), res in fed_cps.items():
+        if not np.array_equal(res.candidates, candidate_cs_pairs(
+                stats.summaries[i], stats.summaries[j])):
+            raise AssertionError(f"({i}, {j}): signature probe candidates "
+                                 f"differ from candidate_cs_pairs")
+        if res.n_checked_pairs != stats._pair_pruning[(i, j)][0]:
+            raise AssertionError(f"({i}, {j}): {res.n_checked_pairs} exact "
+                                 f"checks, the build made "
+                                 f"{stats._pair_pruning[(i, j)][0]}")
+        want = stats.fed_cp.get((i, j))
+        if want is not None and int(want.count.max()) > INT32_MAX:
+            raise AssertionError(f"({i}, {j}): a CP count exceeds int32")
+        for how, got in (("intersect_count", res.cps),
+                         ("match_counts", res.match_cps)):
+            if want is None:
+                if got.n_cp:
+                    raise AssertionError(f"({i}, {j}): CPs from {how} where "
+                                         f"the build has none")
+                continue
+            for f in ("pred", "cs1", "cs2", "count"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"({i}, {j}): federated CP {f} from "
+                                         f"{how} differ")
+
+
+def phase_stats(state: dict) -> None:
+    """The statistics path on the card, once: device CS signatures and
+    predicate bitmaps per source, then Algorithm 1 for every ordered source
+    pair through ``compute_federated_cps_ops`` (signature probe, exact
+    intersections), each result held against the host statistics of
+    ``build_federated_stats`` (which itself stays on the host, as in the
+    reference).  Kernel-against-plain replays and timings run later, in
+    ``check_stats``."""
+    import torch
+
+    from repro_torch.core.characteristic_sets import \
+        compute_characteristic_sets_torch
+    from repro_torch.core.federation import (build_federated_stats,
+                                             compute_federated_cps_ops)
+    from repro_torch.kernels import ops
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation)
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    fed, _ = generate_federation(fedbench_like_spec(scale=STATS_SCALE))
+    stats = build_federated_stats(fed)
+    t_setup = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    subjects = rows = 0
+    big_rows = None               # seg_bitmap's largest main-path input
+    for k, src in enumerate(fed.sources):
+        tab = src.table
+        s_d = torch.from_numpy(tab.s).to(dev)
+        p_d = torch.from_numpy(tab.p).to(dev)
+        dev_cs = compute_characteristic_sets_torch(s_d, p_d, device=DEVICE)
+        n_subj = int(dev_cs[3][-1]) + 1
+        # bitmaps: the table is sorted by (s, p, o), so its rows are in the
+        # function's (s, p) order; each unique (s, p) row counts under its
+        # subject's segment, repeats are padding (seg -1); bucket = p % 128
+        first = torch.ones(1, dtype=torch.bool, device=dev)
+        new_sp = torch.cat([first, (s_d[1:] != s_d[:-1])
+                            | (p_d[1:] != p_d[:-1])])
+        seg = torch.where(new_sp, dev_cs[3], -1).to(torch.int32)
+        bucket = (p_d % 128).to(torch.int32)
+        bitmaps = ops.predicate_bitmaps(seg, bucket, n_subj, device=DEVICE)
+        _cs_checks(stats.cs[k], dev_cs, n_subj, bitmaps, src.name)
+        if big_rows is None or len(seg) > len(big_rows[0]):
+            big_rows = (seg, bucket, n_subj)
+        subjects += n_subj
+        rows += len(p_d)
+    t_cs = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    fed_cps = compute_federated_cps_ops(stats.exports, stats.summaries,
+                                        device=DEVICE)
+    t_alg1 = time.perf_counter() - t1
+    _algorithm1_checks(stats, fed_cps)
+    checked = sum(r.n_checked_pairs for r in fed_cps.values())
+    if checked != stats.pruning_checked:
+        raise AssertionError(f"{checked} exact checks, the build made "
+                             f"{stats.pruning_checked}")
+    state["stats_run"] = (stats, fed_cps, big_rows)
+    state["stats"] = dict(
+        scale=STATS_SCALE, sources=len(fed.sources),
+        triples=fed.total_triples(), subjects=subjects, rows=rows,
+        probe_blocks=sum(len(r.blocks) for r in fed_cps.values()),
+        exact_checks=checked, possible_pairs=stats.pruning_possible,
+        fed_cps=sum(c.n_cp for c in stats.fed_cp.values()), setup_s=t_setup,
+        cs_s=t_cs, algorithm1_s=t_alg1)
+
+
+def _largest_calls(stats, fed_cps, big_rows, dev) -> dict:
+    """The kernel arguments of each statistics kernel's largest main-path
+    call: the longest exact check (object list plus subject list) for
+    ``sorted_intersect`` and ``join_count``, the largest probe block for
+    ``summary_probe``, the source with the most rows for ``seg_bitmap``."""
+    import numpy as np
+    import torch
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    def words(sig):               # uint64 words as int32, low half first
+        return up(np.ascontiguousarray(sig).view(np.int32))
+
+    check = block = None
+    for (i, j), res in fed_cps.items():
+        eo, es = stats.exports[i], stats.exports[j]
+        for r, c2 in res.pairs:
+            n = (int(eo.obj_indptr[r + 1] - eo.obj_indptr[r]),
+                 int(es.subj_indptr[c2 + 1] - es.subj_indptr[c2]))
+            if min(n) and (check is None or sum(n) > check[0]):
+                check = (sum(n), i, j, r, c2)
+        for orows, srows in res.blocks:
+            if block is None or len(orows) + len(srows) > block[0]:
+                block = (len(orows) + len(srows), i, j, orows, srows)
+    _, i, j, r, c2 = check
+    ents, mult = stats.exports[i].objects_row(r)
+    subj = stats.exports[j].subjects_of(c2)
+    a, aw, b = up(ents), up(mult), up(subj)
+    ones = torch.ones(len(subj), dtype=torch.int32, device=dev)
+    _, i, j, orows, srows = block
+    return {"sorted_intersect": (a, aw, b, ones), "join_count": (a, b, ones),
+            "summary_probe": (words(stats.summaries[i].obj_sig[orows]),
+                              words(stats.summaries[j].subj_sig[srows])),
+            "seg_bitmap": big_rows}
+
+
+def _bytes_bound(nbytes: int) -> "tuple[float, str]":
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_stats(state: dict) -> None:
+    """Each statistics kernel against its plain version on its largest
+    main-path input, with device times of both (``queued_ms``), the
+    wrapper's time per call, the compulsory-bytes bound of that input, and
+    for ``seg_bitmap`` the one PyTorch call that computes the same counts
+    (``torch.bincount``), timed as a yardstick only."""
+    import torch
+
+    from repro_torch.core.federation import compute_federated_cps
+    from repro_torch.kernels import join_count as JC
+    from repro_torch.kernels import seg_bitmap as SB
+    from repro_torch.kernels import sorted_intersect as SI
+    from repro_torch.kernels import summary_probe as SP
+
+    stats, fed_cps, big_rows = state.pop("stats_run")
+    # the host's own Algorithm 1 (numpy probe and np.intersect1d) over the
+    # same pairs, for comparison with the card's (``algorithm1_s``)
+    t0 = time.perf_counter()
+    for i, j in fed_cps:
+        compute_federated_cps(stats.exports[i], stats.exports[j],
+                              stats.summaries[i], stats.summaries[j])
+    state["stats"]["host_algorithm1_s"] = time.perf_counter() - t0
+    keep = _largest_calls(stats, fed_cps, big_rows, torch.device(DEVICE))
+    rows = {}
+    for name, kernel, plain in (
+            ("sorted_intersect", SI.sorted_intersect, SI.sorted_intersect_plain),
+            ("join_count", JC.join_count, JC.join_count_plain),
+            ("seg_bitmap", SB.seg_bitmap, SB.seg_bitmap_plain),
+            ("summary_probe", SP.summary_probe, SP.summary_probe_plain)):
+        args = keep[name]
+        err = max_abs_err([kernel(*args)], [plain(*args)])
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"its largest main-path input: {err}")
+        kms, queued = queued_ms(lambda: kernel(*args))
+        if not queued:
+            raise AssertionError(f"{name}: the host fell behind the card, so "
+                                 f"its time would hold host time")
+        pms, plain_queued = queued_ms(lambda: plain(*args))
+        row = {"max_abs_err": err, "kernel_ms": kms,
+               "call_ms": cuda_ms(lambda: kernel(*args), reps=20),
+               "plain_ms": pms, "plain_queued": plain_queued,
+               "library_ms": None}
+        if name == "sorted_intersect":
+            # keys read once; a weight only where its key has a match
+            a, _, b, _ = args
+            ma, mb = (int(torch.isin(x, y).sum()) for x, y in ((a, b), (b, a)))
+            row.update(shape=[a.shape[0], b.shape[0]], matches=[ma, mb])
+            row["bound_ms"], row["bound_by"] = _bytes_bound(
+                4 * (a.shape[0] + b.shape[0]) + 4 * (ma + mb) + 4)
+        elif name == "join_count":
+            # probe keys and outputs once, build keys once, a build weight
+            # only where its key is probed
+            probe, build, _ = args
+            mb = int(torch.isin(build, probe).sum())
+            row.update(shape=[probe.shape[0], build.shape[0]], matches=mb)
+            row["bound_ms"], row["bound_by"] = _bytes_bound(
+                8 * probe.shape[0] + 4 * build.shape[0] + 4 * mb)
+        elif name == "seg_bitmap":
+            # every segment read, a bucket only where its row is in the
+            # plane, the (n_seg, 128) float32 plane written once
+            seg, bucket, n_seg = args
+            ok = (seg >= 0) & (seg < n_seg)
+            n_ok = int(ok.sum())
+            row.update(shape=[seg.shape[0], n_seg], rows_in_plane=n_ok)
+            row["bound_ms"], row["bound_by"] = _bytes_bound(
+                4 * seg.shape[0] + 4 * n_ok + 4 * 128 * n_seg)
+            key = (seg[ok].long() * 128 + bucket[ok].long()).contiguous()
+            lib = torch.bincount(key, minlength=n_seg * 128)
+            if not torch.equal(lib.view(n_seg, 128).float(), kernel(*args)):
+                raise AssertionError("torch.bincount disagrees with seg_bitmap")
+            row["library_ms"], row["library_queued"] = queued_ms(
+                lambda: torch.bincount(key, minlength=n_seg * 128))
+        else:
+            a_sig, b_sig = args
+            row["shape"] = [a_sig.shape[0], b_sig.shape[0], a_sig.shape[1]]
+            row["bound_ms"], row["bound_by"] = _bytes_bound(
+                4 * a_sig.shape[1] * (a_sig.shape[0] + b_sig.shape[0])
+                + 4 * a_sig.shape[0] * b_sig.shape[0])
+        rows[name] = row
+    state["stats_kernels"] = rows
+    emit("stats", nvidia_smi=state["smi"], **state["stats"], kernels=rows)
+
+
 def summary(state: dict) -> dict:
     ls = state["large_star"]
     sweep, tile = ls["clique12"], ls["chain20"]
+    st = state["stats_kernels"]
     err = state["err"]
     return {"kernels": [
         {"name": "dp_sweep", "route": "cuda",
@@ -514,7 +929,16 @@ def summary(state: dict) -> dict:
          "ms": tile["kernel_ms"], "plain_ms": tile["plain_ms"],
          "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
          "library_ms": None},
-    ]}
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces,
+         "launches": state["main_launches"][name],
+         "max_abs_err": max(err[name], st[name]["max_abs_err"]),
+         "ms": st[name]["kernel_ms"], "plain_ms": st[name]["plain_ms"],
+         "bound_ms": st[name]["bound_ms"], "bound_by": st[name]["bound_by"],
+         "library_ms": st[name]["library_ms"]}
+        for name, replaces in STATS_KERNELS]}
 
 
 def main() -> int:
@@ -529,24 +953,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import join_order as jo
-    from repro_torch.kernels import dp_layer as K
+    from repro_torch.kernels import build
 
     state: dict = {}
     phase_build(state)
     phase_kernels(state)
     # the main path: counts set to 0 just before, read just after; the
     # checks against the numpy backend and the timings come after the read
-    K.reset_launches()
+    build.reset_launches()
     for k in jo.DP_SWEEP_COUNTERS:
         jo.DP_SWEEP_COUNTERS[k] = 0
     phase_fedbench(state)
     phase_large_star(state)
-    state["main_launches"] = dict(K.LAUNCHES)
+    phase_stats(state)
+    state["main_launches"] = dict(build.LAUNCHES)
     for k, v in state["main_launches"].items():
         if v == 0:
             raise AssertionError(f"{k} was never launched on the main path")
     check_fedbench(state)
     check_large_star(state)
+    check_stats(state)
     print(state["smi"], flush=True)
     print(json.dumps(summary(state)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ by exactly the same set of predicates. Per CS ``C`` we keep
 ``p`` whose subject is in ``C``) — precisely the statistics of Listing 1.1.
 
 The implementation is columnar numpy (sort + segmented reduction), host
-code exactly as in the reference package.  The reference's device-side
-``compute_characteristic_sets_jnp`` is not part of this port yet.
+code exactly as in the reference package.  ``compute_characteristic_sets_torch``
+is the device form of the per-subject signatures (the reference's
+``compute_characteristic_sets_jnp``), in plain PyTorch on the card by
+default; its segments feed ``repro_torch.kernels.ops.predicate_bitmaps``.
 """
 from __future__ import annotations
 
@@ -185,3 +187,67 @@ def compute_characteristic_sets(table: TripleTable) -> CSStats:
         ent_cs=cs_of_subj,
     )
 
+
+
+# splitmix64's constants as int64 bit patterns (two's complement)
+_SM_ADD = 0x9E3779B97F4A7C15 - (1 << 64)
+_SM_MUL1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_SM_MUL2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _lsr64(x, k: int):
+    """Logical right shift of int64 tensors holding uint64 bit patterns
+    (``>>`` on a signed tensor shifts arithmetically)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def splitmix64_torch(x):
+    """``common.hashing.splitmix64`` on an int64 tensor of uint64 bit
+    patterns; additions and multiplications wrap modulo 2^64."""
+    x = x + _SM_ADD
+    x = (x ^ _lsr64(x, 30)) * _SM_MUL1
+    x = (x ^ _lsr64(x, 27)) * _SM_MUL2
+    return x ^ _lsr64(x, 31)
+
+
+def compute_characteristic_sets_torch(s, p, device="cuda"):
+    """Device path: per-subject predicate-set signatures by sort + segment
+    ops, the counterpart of the reference's ``compute_characteristic_sets_jnp``.
+
+    Returns the tuple that function returns, ``(subj_ids, sig_sum, deg,
+    subj_seg, ph)``, as tensors on ``device``:
+
+    * per subject segment (length ``n = len(s)``, an upper bound on the
+      subjects; entries past the last subject are 0): ``subj_ids`` (dtype of
+      ``s``), the wrapping ``sig_sum`` of the splitmix64 hashes of its
+      distinct predicates (int64 holding uint64 bits) and ``deg`` (int32,
+      its number of distinct predicates);
+    * per row in ``(s, p)`` order: ``subj_seg`` (int64 subject segment) and
+      ``ph`` (the row's predicate hash, 0 on repeats of an ``(s, p)`` row).
+    """
+    import torch
+
+    s = torch.as_tensor(s, device=device)
+    p = torch.as_tensor(p, device=device)
+    n = s.shape[0]
+    if n == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=device)
+        return (s.new_zeros(0), z, torch.zeros(0, dtype=torch.int32,
+                                                device=device), z, z)
+    # lexsort by (s, p): stable sort by p, then stably by s
+    o1 = torch.argsort(p, stable=True)
+    order = o1[torch.argsort(s[o1], stable=True)]
+    s_, p_ = s[order], p[order]
+    first = torch.ones(1, dtype=torch.bool, device=device)
+    new_s = torch.cat([first, s_[1:] != s_[:-1]])
+    new_sp = torch.cat([first, new_s[1:] | (p_[1:] != p_[:-1])])
+    x = splitmix64_torch(p_.to(torch.int64))
+    ph = torch.where(new_sp, x, 0)                  # count each (s, p) once
+    subj_seg = torch.cumsum(new_s, 0) - 1
+    sig_sum = torch.zeros(n, dtype=torch.int64, device=device).index_add_(
+        0, subj_seg, ph)
+    deg = torch.zeros(n, dtype=torch.int32, device=device).index_add_(
+        0, subj_seg, new_sp.to(torch.int32))
+    subj_ids = torch.zeros(n, dtype=s.dtype, device=device).scatter_reduce_(
+        0, subj_seg, s_, reduce="amax", include_self=True)
+    return subj_ids, sig_sum, deg, subj_seg, ph

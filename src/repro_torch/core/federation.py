@@ -138,29 +138,8 @@ def compute_federated_cps(
     cnt_l: list[int] = []
     checked = 0
 
-    if obj_summary is not None and subj_summary is not None:
-        cand = candidate_cs_pairs(obj_summary, subj_summary)
-        # map summary rows -> export rows: summary object rows are keyed by
-        # (auth, cs, pred); export rows by (cs, pred). A (cs, pred) export row
-        # may span several authorities; dedupe the (export_row, cs2) pairs.
-        okey = {}
-        for r in range(n_rows):
-            okey.setdefault((int(obj_export.obj_cs[r]), int(obj_export.obj_pred[r])), r)
-        seen: set[tuple[int, int]] = set()
-        pairs: list[tuple[int, int]] = []
-        for oi, si in cand:
-            key = (int(obj_summary.obj_cs[oi]), int(obj_summary.obj_pred[oi]))
-            r = okey.get(key)
-            if r is None:
-                continue
-            c2 = int(subj_summary.subj_cs[si])
-            if (r, c2) not in seen:
-                seen.add((r, c2))
-                pairs.append((r, c2))
-    else:
-        pairs = [(r, c2) for r in range(n_rows) for c2 in range(subj_export.n_cs)]
-
-    for r, c2 in pairs:
+    for r, c2 in candidate_export_pairs(obj_export, subj_export, obj_summary,
+                                        subj_summary):
         ents, mult = obj_export.objects_row(r)
         subj = subj_export.subjects_of(c2)
         if len(ents) == 0 or len(subj) == 0:
@@ -180,6 +159,153 @@ def compute_federated_cps(
         src1=obj_export.src, src2=subj_export.src,
     )
     return FedCPResult(cps=cps, n_checked_pairs=checked, n_possible_pairs=n_possible)
+
+
+def candidate_export_pairs(
+    obj_export: LinkExport,
+    subj_export: LinkExport,
+    obj_summary: EntitySummary | None = None,
+    subj_summary: EntitySummary | None = None,
+) -> list[tuple[int, int]]:
+    """The (objects row, subject CS) pairs Algorithm 1 intersects exactly,
+    in its order: the summary candidates mapped to export rows and
+    deduplicated, or every pair without summaries."""
+    if obj_summary is not None and subj_summary is not None:
+        return _export_pairs(obj_export, obj_summary, subj_summary,
+                             candidate_cs_pairs(obj_summary, subj_summary))
+    return [(r, c2) for r in range(len(obj_export.obj_cs))
+            for c2 in range(subj_export.n_cs)]
+
+
+def _export_pairs(obj_export: LinkExport, obj_summary: EntitySummary,
+                  subj_summary: EntitySummary,
+                  cand: np.ndarray) -> list[tuple[int, int]]:
+    """Summary candidates ``cand`` (obj_row, subj_row) mapped to
+    deduplicated (objects row, subject CS) export pairs, in order."""
+    # map summary rows -> export rows: summary object rows are keyed by
+    # (auth, cs, pred); export rows by (cs, pred). A (cs, pred) export row
+    # may span several authorities; dedupe the (export_row, cs2) pairs.
+    okey = {}
+    for r in range(len(obj_export.obj_cs)):
+        okey.setdefault((int(obj_export.obj_cs[r]), int(obj_export.obj_pred[r])), r)
+    seen: set[tuple[int, int]] = set()
+    pairs: list[tuple[int, int]] = []
+    for oi, si in cand:
+        key = (int(obj_summary.obj_cs[oi]), int(obj_summary.obj_pred[oi]))
+        r = okey.get(key)
+        if r is None:
+            continue
+        c2 = int(subj_summary.subj_cs[si])
+        if (r, c2) not in seen:
+            seen.add((r, c2))
+            pairs.append((r, c2))
+    return pairs
+
+
+@dataclass
+class OpsFedCPResult(FedCPResult):
+    """One ordered source pair of ``compute_federated_cps_ops``: ``cps``
+    counted by ``intersect_count`` and the same CPs counted by
+    ``match_counts`` (``match_cps``); the signature probe's candidate
+    (objects row, subjects row) summary pairs (``candidates``, as
+    ``candidate_cs_pairs`` returns them) and its blocks, one (object rows,
+    subject rows) pair of index arrays per shared authority; the
+    (objects row, subject CS) export pairs Algorithm 1 visits (``pairs``)."""
+
+    match_cps: CPStats
+    candidates: np.ndarray
+    blocks: list[tuple[np.ndarray, np.ndarray]]
+    pairs: list[tuple[int, int]]
+
+
+def _probe_ops(obj_summary: EntitySummary, subj_summary: EntitySummary,
+               device) -> tuple[np.ndarray, list]:
+    """``candidate_cs_pairs`` through ``ops.signature_overlap``, one call
+    per shared authority; returns the candidates and the blocks."""
+    from repro_torch.kernels import ops
+
+    out: list[tuple[int, int]] = []
+    blocks: list[tuple[np.ndarray, np.ndarray]] = []
+    if len(obj_summary.obj_auth) and len(subj_summary.subj_auth):
+        for a in np.unique(obj_summary.obj_auth):
+            orows = np.nonzero(obj_summary.obj_auth == a)[0]
+            srows = np.nonzero(subj_summary.subj_auth == a)[0]
+            if len(srows) == 0:
+                continue
+            ov = ops.signature_overlap(obj_summary.obj_sig[orows],
+                                       subj_summary.subj_sig[srows],
+                                       device=device)
+            blocks.append((orows, srows))
+            oi, si = np.nonzero(ov)
+            out.extend(zip(orows[oi].tolist(), srows[si].tolist()))
+    return np.asarray(out, np.int32).reshape(-1, 2), blocks
+
+
+def _cp_rows(rows: list, src1: int, src2: int) -> CPStats:
+    cols = list(zip(*rows)) if rows else [[], [], [], []]
+    return CPStats.from_rows(
+        np.asarray(cols[0], np.int32), np.asarray(cols[1], np.int32),
+        np.asarray(cols[2], np.int32), np.asarray(cols[3], np.int64),
+        src1=src1, src2=src2)
+
+
+def compute_federated_cps_ops(
+    exports: list[LinkExport],
+    summaries: list[EntitySummary],
+    device="cuda",
+) -> dict[tuple[int, int], OpsFedCPResult]:
+    """Algorithm 1 for every ordered pair of sources on the statistics
+    kernels (``repro_torch.kernels.ops``) on ``device``: the signature probe
+    per shared authority (``signature_overlap``), then every candidate
+    (objects row, subject CS) pair through ``intersect_count`` (objects
+    weighted by their link multiplicities, subjects by 1) and
+    ``match_counts``.  The pairs, their order and the counts are those of
+    ``compute_federated_cps`` with summaries; each source's export goes to
+    ``device`` once.  ``build_federated_stats`` runs the host form, as the
+    reference does."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    up = [tuple(torch.from_numpy(x).to(dev)
+                for x in (e.obj_ents, e.obj_mult, e.subj_ents)) for e in exports]
+    longest = max((int(np.diff(e.subj_indptr).max(initial=0)) for e in exports),
+                  default=0)
+    ones = torch.ones(longest, dtype=torch.int32, device=dev)
+    out: dict[tuple[int, int], OpsFedCPResult] = {}
+    for i, eo in enumerate(exports):
+        for j, es in enumerate(exports):
+            if i == j:
+                continue
+            cand, blocks = _probe_ops(summaries[i], summaries[j], dev)
+            pairs = _export_pairs(eo, summaries[i], summaries[j], cand)
+            ents_d, mult_d, subj_d = up[i][0], up[i][1], up[j][2]
+            by_intersect: list = []
+            by_match: list = []
+            checked = 0
+            for r, c2 in pairs:
+                lo, hi = int(eo.obj_indptr[r]), int(eo.obj_indptr[r + 1])
+                slo, shi = int(es.subj_indptr[c2]), int(es.subj_indptr[c2 + 1])
+                if hi == lo or shi == slo:
+                    continue
+                checked += 1
+                e, sb, w = ents_d[lo:hi], subj_d[slo:shi], ones[:shi - slo]
+                key = (int(eo.obj_pred[r]), int(eo.obj_cs[r]), c2)
+                cnt = ops.intersect_count(e, mult_d[lo:hi], sb, w, device=dev)
+                if cnt:
+                    by_intersect.append((*key, cnt))
+                mc = ops.match_counts(e, sb, w, device=dev)
+                m = int((eo.obj_mult[lo:hi].astype(np.int64) * mc).sum())
+                if m:
+                    by_match.append((*key, m))
+            out[(i, j)] = OpsFedCPResult(
+                cps=_cp_rows(by_intersect, eo.src, es.src),
+                n_checked_pairs=checked,
+                n_possible_pairs=len(eo.obj_cs) * es.n_cs,
+                match_cps=_cp_rows(by_match, eo.src, es.src),
+                candidates=cand, blocks=blocks, pairs=pairs)
+    return out
 
 
 def compute_federated_css(subj_a: LinkExport, subj_b: LinkExport) -> list[tuple[int, int, int]]:

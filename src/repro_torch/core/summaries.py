@@ -16,9 +16,10 @@ datasets sets the *same* bit in both summaries ⇒ candidate generation by
 bitset-AND has **no false negatives**. False positives are pruned by the exact
 intersection that follows (``federation.compute_federated_cps``).
 
-The batched AND+popcount hot loop is numpy here, as in the reference
-package (its Pallas ``summary_probe`` kernel is off the statistics path and
-not ported yet).
+The batched AND+popcount probe has a CUDA kernel,
+``repro_torch.kernels.summary_probe`` (host entry point
+``repro_torch.kernels.ops.signature_overlap``); the statistics build still
+runs the numpy form below (``candidate_cs_pairs``), as the reference does.
 """
 from __future__ import annotations
 

@@ -1,9 +1,26 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
-PyTorch version (``dp_layer.py``; sources under ``csrc/``):
+PyTorch version (sources under ``csrc/``; built and launched through
+``build.py``):
 
-  * ``dp_sweep`` -- the join-order DP sweep with the state resident on the
-    card, one launch per popcount layer (replaces the reference's
-    ``dp_sweep_resident``);
-  * ``dp_layer`` -- one dense layer tile priced and reduced per column, the
-    tiled fallback (replaces the reference's Pallas ``dp_layer``).
+  * ``dp_sweep`` (``dp_layer.py``) -- the join-order DP sweep with the state
+    resident on the card, one launch per popcount layer (replaces the
+    reference's ``dp_sweep_resident``);
+  * ``dp_layer`` (``dp_layer.py``) -- one dense layer tile priced and reduced
+    per column, the tiled fallback (replaces the reference's Pallas
+    ``dp_layer``);
+  * ``sorted_intersect`` -- Algorithm 1's weighted intersection count
+    (replaces ``sorted_intersect_weighted``);
+  * ``join_count`` -- per-probe weighted match counts against a sorted build
+    side (replaces ``join_count``);
+  * ``summary_probe`` -- popcount of the pairwise AND of entity-summary
+    signatures (replaces ``summary_probe``);
+  * ``seg_bitmap`` -- (segment, predicate bucket) counts for per-subject
+    predicate bitmaps (replaces ``seg_bitmap``).
+
+``ops.py`` holds the statistics kernels' host entry points
+(``intersect_count``, ``predicate_bitmaps``, ``match_counts``,
+``signature_overlap``).  Importing this package registers every kernel, so
+``build.build_kernels()`` builds all six.
 """
+from repro_torch.kernels import (dp_layer, join_count, seg_bitmap,  # noqa: F401
+                                 sorted_intersect, summary_probe)

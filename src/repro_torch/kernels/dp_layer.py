@@ -25,149 +25,31 @@ so no multiply-add is contracted) and reproduce the numpy sweep's
 enumeration order and first-strict-minimum tie-breaking bit for bit.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches (plain-version calls do not count).
+tensors it launches the kernel or raises.  Plain-version calls launch
+nothing and are not counted.
 
 What the reference kept only for XLA's compile cache is gone: the bucketed
 trace shapes (``_bucket``), the padding copies (``_pad3``/``_pad2``), the
 program cache (``_ProgramCache``) and ``dp_layer_program``.  PyTorch runs
 eagerly and the kernels take any extent.
 
-The kernels are compiled at first use with ``nvcc`` into shared libraries
-with a plain C interface (loaded with ``ctypes``), under ``build/kernels/``
-at the repository root, keyed by a hash of the source and the flags.
+The kernels are built, loaded and counted by ``repro_torch.kernels.build``
+(nvcc at first use, plain C interface, ``ctypes``; ``build.LAUNCHES``).
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
+
+from repro_torch.kernels.build import D, I, P, register
+from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import launch as _launch
+from repro_torch.kernels.build import route as _route
 
 _STRAT_EXCL, _STRAT_HASH, _STRAT_BIND = 2, 3, 4   # mirror join_order's codes
 _BIG_ROW = 2**31 - 1                              # "no valid pair in this column"
 
-# kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"dp_sweep": 0, "dp_layer": 0}
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_REPO_ROOT = Path(__file__).resolve().parents[3]
-SOURCES = {"dp_sweep": "dp_sweep.cu", "dp_layer": "dp_layer.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SIGNATURES = {
-    "dp_sweep": ("dp_sweep_layer", [_P] * 12 + [_I] * 5 + [_D] * 4 + [_P]),
-    "dp_layer": ("dp_layer_tile", [_P] * 11 + [_I] * 3 + [_D] * 4 + [_P]),
-}
-_LIBS: dict = {}
-BUILD_LOG: dict = {}      # nvcc's stderr per kernel (ptxas register report)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def build_dir() -> Path:
-    return _REPO_ROOT / "build" / "kernels"
-
-
-def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{key}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cand = [os.environ.get("NVCC")]
-    if CUDA_HOME:
-        cand.append(str(Path(CUDA_HOME) / "bin" / "nvcc"))
-    cand.append(shutil.which("nvcc"))
-    for c in cand:
-        if c and Path(c).exists():
-            return c
-    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME): the CUDA "
-                       "kernels cannot be built")
-
-
-def build_kernels(names: "tuple[str, ...]" = tuple(SOURCES)) -> "list[str]":
-    """Compile every kernel library that is not built yet: one ``nvcc`` per
-    source, all started together.  Returns the names it compiled."""
-    jobs = []
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    failed = []
-    for name, out, tmp, proc in jobs:
-        _, err = proc.communicate()
-        BUILD_LOG[name] = err.decode(errors="replace")
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n"
-                          f"{BUILD_LOG[name]}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return [j[0] for j in jobs]
-
-
-def _lib(name: str):
-    fn = _LIBS.get(name)
-    if fn is None:
-        build_kernels((name,))
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return fn
-
-
-def _check(name: str, t, dtype, shape: tuple, device) -> None:
-    import torch
-
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _route(device) -> str:
-    if device.type == "cpu":
-        return "plain"
-    if device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"no dp kernel for device {device}")
-
-
-def _launch(name: str, *args) -> None:
-    import torch
-
-    rc = _lib(name)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+register("dp_sweep", "dp_sweep.cu", "dp_sweep_layer", [P] * 12 + [I] * 5 + [D] * 4)
+register("dp_layer", "dp_layer.cu", "dp_layer_tile", [P] * 11 + [I] * 3 + [D] * 4)
 
 
 # --------------------------------------------------------------------------

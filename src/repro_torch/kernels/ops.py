@@ -1,0 +1,69 @@
+"""Host entry points for the statistics kernels: arrays in, numpy or int out.
+
+The port's counterpart of the reference's ``kernels/ops.py`` statistics
+wrappers.  Each takes numpy arrays (or tensors, which stay where they are
+when already on ``device``), moves them to ``device`` as int32, runs the
+kernel wrapper, and returns host values.  ``device`` is ``"cuda"`` unless
+the caller asks for the CPU, where the wrappers run their plain versions.
+
+What the reference needed only for its TPU blocks is gone: the block
+padding (``_pad_to``, ``_pad2`` and the ``-1``/``-2`` sentinels), since the
+kernels take any extent, and ``set_interpret``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.kernels.join_count import join_count
+from repro_torch.kernels.seg_bitmap import seg_bitmap
+from repro_torch.kernels.sorted_intersect import sorted_intersect
+from repro_torch.kernels.summary_probe import summary_probe
+
+DEFAULT_DEVICE = "cuda"
+
+
+def _i32(x, device):
+    """``x`` as a contiguous int32 tensor on ``device``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+
+
+def intersect_count(a, aw, b, bw, device=DEFAULT_DEVICE) -> int:
+    """Weighted intersection count ``sum over a[i] == b[j] of aw[i] * bw[j]``
+    of id lists, ``b`` sorted ascending (int32, wrapping)."""
+    return int(sorted_intersect(_i32(a, device), _i32(aw, device),
+                                _i32(b, device), _i32(bw, device)))
+
+
+def predicate_bitmaps(seg, bucket, n_seg: int, device=DEFAULT_DEVICE) -> np.ndarray:
+    """``(n_seg, 128)`` bool predicate-presence bitmaps of the rows
+    ``(seg, bucket)``; rows with ``seg < 0`` are padding."""
+    counts = seg_bitmap(_i32(seg, device), _i32(bucket, device), int(n_seg))
+    return (counts > 0).cpu().numpy()
+
+
+def match_counts(probe, build, build_w, device=DEFAULT_DEVICE) -> np.ndarray:
+    """``(len(probe),)`` int32 match multiplicities against the sorted
+    ``build`` weighted by ``build_w``."""
+    return join_count(_i32(probe, device), _i32(build, device),
+                      _i32(build_w, device)).cpu().numpy()
+
+
+def signature_overlap(a_sig, b_sig, device=DEFAULT_DEVICE) -> np.ndarray:
+    """``(nA, nB)`` int32 popcounts of pairwise signature ANDs.  Takes the
+    host layout (uint64 words) and converts it to int32 words."""
+    a32 = _u64_to_i32(np.asarray(a_sig))
+    b32 = _u64_to_i32(np.asarray(b_sig))
+    return summary_probe(_i32(a32, device), _i32(b32, device)).cpu().numpy()
+
+
+def _u64_to_i32(x: np.ndarray) -> np.ndarray:
+    """int32 words of uint64 signature rows, low half first (the host's
+    little-endian layout).  Unlike the reference's copy it takes zero rows."""
+    if x.dtype == np.uint64:
+        x = np.ascontiguousarray(x)
+        return x.view(np.uint32).astype(np.int32).reshape(x.shape[0], 2 * x.shape[-1])
+    return x.astype(np.int32)

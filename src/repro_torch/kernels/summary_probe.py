@@ -1,0 +1,79 @@
+"""Pairwise popcount of the AND of entity-summary signatures (paper §3.3).
+
+``summary_probe`` returns the ``(nA, nB)`` int32 ``sum over words of
+popcount(a[i] & b[j])`` of int32 signature words; zero means the two
+signatures share no bit, so the (objects row, subjects row) pair cannot
+link.
+
+The kernel, ``csrc/summary_probe.cu``, replaces the reference's Pallas
+``summary_probe`` (128 x 128 output tiles, SWAR popcount on the VPU): 32 x 32
+output tiles with the signature words staged in shared memory and
+``__popc``.  It is bound by bytes at the statistics' sizes.  No block
+padding: the kernel takes any extent.
+
+A wrapper runs its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.build import P, I, check, launch, register, route
+
+register("summary_probe", "summary_probe.cu", "summary_probe", [P] * 3 + [I] * 3)
+
+_PLAIN_CHUNK = 1 << 22        # (i, j, word) elements per step of the plain form
+
+
+def _check_sigs(a_sig, b_sig):
+    import torch
+
+    dev = a_sig.device
+    w = a_sig.shape[1] if a_sig.dim() == 2 else -1
+    check("a_sig", a_sig, torch.int32, (a_sig.shape[0], w), dev)
+    check("b_sig", b_sig, torch.int32, (b_sig.shape[0], w), dev)
+    return dev
+
+
+def summary_probe(a_sig, b_sig):
+    """``(nA, nB)`` int32 popcounts of the pairwise AND of ``a_sig``
+    ``(nA, W)`` and ``b_sig`` ``(nB, W)`` int32 words."""
+    import torch
+
+    dev = _check_sigs(a_sig, b_sig)
+    if route(dev) == "plain":
+        return summary_probe_plain(a_sig, b_sig)
+    na, w = a_sig.shape
+    nb = b_sig.shape[0]
+    out = torch.zeros((na, nb), dtype=torch.int32, device=dev)
+    if na and nb and w:
+        launch("summary_probe", a_sig.data_ptr(), b_sig.data_ptr(),
+               out.data_ptr(), na, nb, w)
+    return out
+
+
+def popcount32(v):
+    """int64 bit counts of int32 words: the reference's SWAR popcount, with
+    the words widened to int64 and masked to 32 bits so that ``>>`` (an
+    arithmetic shift in PyTorch) acts as the logical shift it needs."""
+    import torch
+
+    x = v.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def summary_probe_plain(a_sig, b_sig):
+    """Plain PyTorch version of ``summary_probe`` (same arguments), a few
+    rows of ``a_sig`` at a time."""
+    import torch
+
+    _check_sigs(a_sig, b_sig)
+    na, w = a_sig.shape
+    nb = b_sig.shape[0]
+    out = torch.zeros((na, nb), dtype=torch.int32, device=a_sig.device)
+    step = max(1, _PLAIN_CHUNK // max(1, nb * w))
+    for i in range(0, na, step):
+        both = a_sig[i:i + step, None, :] & b_sig[None, :, :]
+        out[i:i + step] = popcount32(both).sum(-1).to(torch.int32)
+    return out

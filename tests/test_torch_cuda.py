@@ -14,7 +14,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import join_order as jo        # noqa: E402
 from repro_torch.core.cost import CostModel          # noqa: E402
 from repro_torch.core.source_selection import SourceSelection  # noqa: E402
+from repro_torch.kernels import build               # noqa: E402
 from repro_torch.kernels import dp_layer as K        # noqa: E402
+from repro_torch.kernels import join_count as JC     # noqa: E402
+from repro_torch.kernels import ops                  # noqa: E402
+from repro_torch.kernels import seg_bitmap as SB     # noqa: E402
+from repro_torch.kernels import sorted_intersect as SI  # noqa: E402
+from repro_torch.kernels import summary_probe as SP  # noqa: E402
+from repro_torch.core.characteristic_sets import compute_characteristic_sets_torch  # noqa: E402
 from repro_torch.rdf.shapes import shaped_planning_inputs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -62,9 +69,9 @@ def test_dp_sweep_kernel_equals_plain(dev, shape, n, B):
          for x in _sweep_inputs(n, conn, B, seed=n + B, n_excl=15)]
     idx = sched.device_arrays(dev)
     for params in PARAMS:
-        before = K.LAUNCHES["dp_sweep"]
+        before = build.LAUNCHES["dp_sweep"]
         got = K.dp_sweep(params, *idx, *t)
-        assert K.LAUNCHES["dp_sweep"] == before + n - 1
+        assert build.LAUNCHES["dp_sweep"] == before + n - 1
         want = K.dp_sweep_plain(params, *idx, *t)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
@@ -91,9 +98,9 @@ def test_dp_layer_kernel_equals_plain(dev, B, R, C):
         (rng.random(shp) < 0.5).astype(np.int8), valid.astype(np.int8),
         rng.uniform(0, 80, (B, C)))]
     for params in PARAMS:
-        before = K.LAUNCHES["dp_layer"]
+        before = build.LAUNCHES["dp_layer"]
         got = K.dp_layer(*tile, params)
-        assert K.LAUNCHES["dp_layer"] == before + 1
+        assert build.LAUNCHES["dp_layer"] == before + 1
         want = K.dp_layer_plain(*tile, params)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
@@ -148,3 +155,111 @@ def test_card_plans_equal_numpy(dev, shape, n, B, block_bytes, mode):
                                   dp_backend="numpy")
     for a, b in zip(got, want):
         _same_tree(a, b)
+
+
+def _i32(dev, *xs):
+    return [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+            for x in xs]
+
+
+def _counted(name, fn, *args):
+    before = build.LAUNCHES[name]
+    out = fn(*args)
+    return out, build.LAUNCHES[name] - before
+
+
+@pytest.mark.parametrize("na,nb,hi", [(1, 1, 4), (300, 517, 900),
+                                      (227_110, 400_000, 4_000_000),
+                                      (0, 5, 10), (5, 0, 10)])
+def test_sorted_intersect_and_join_count_kernels_equal_plain(dev, na, nb, hi):
+    rng = np.random.default_rng(na + nb)
+    a = rng.permutation(rng.choice(hi, na, replace=False)) - hi // 10
+    b = np.sort(rng.integers(0, hi, nb)) - hi // 10     # duplicate keys
+    aw, bw = rng.integers(-50, 2**20, na), rng.integers(-50, 2**20, nb)
+    ta, taw, tb, tbw = _i32(dev, a, aw, b, bw)
+    got, n = _counted("sorted_intersect", SI.sorted_intersect, ta, taw, tb, tbw)
+    assert n == (1 if na and nb else 0)
+    want = SI.sorted_intersect_plain(ta, taw, tb, tbw)
+    got_c, n = _counted("join_count", JC.join_count, ta, tb, tbw)
+    assert n == (1 if na else 0)
+    want_c = JC.join_count_plain(ta, tb, tbw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    assert torch.equal(got_c, want_c)
+
+
+@pytest.mark.parametrize("n,n_seg", [(1, 1), (1000, 37), (3_600_000, 400_000),
+                                     (0, 3), (10, 0)])
+def test_seg_bitmap_kernel_equals_plain(dev, n, n_seg):
+    rng = np.random.default_rng(n + n_seg)
+    seg = np.sort(rng.integers(-1, n_seg + 2, n))      # -1 rows and rows past the plane
+    bucket = rng.integers(-1, 129, n)
+    ts, tk = _i32(dev, seg, bucket)
+    got, launched = _counted("seg_bitmap", SB.seg_bitmap, ts, tk, n_seg)
+    assert launched == (1 if n and n_seg else 0)
+    want = SB.seg_bitmap_plain(ts, tk, n_seg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("na,nb,w", [(1, 1, 1), (33, 65, 31), (7, 40, 512),
+                                     (300, 200, 512), (0, 3, 8), (4, 3, 0)])
+def test_summary_probe_kernel_equals_plain(dev, na, nb, w):
+    rng = np.random.default_rng(na * nb + w)
+    ta, tb = _i32(dev, rng.integers(-2**31, 2**31, (na, w)),
+                  rng.integers(-2**31, 2**31, (nb, w)))
+    got, launched = _counted("summary_probe", SP.summary_probe, ta, tb)
+    assert launched == (1 if na and nb and w else 0)
+    want = SP.summary_probe_plain(ta, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_stats_ops_default_to_the_card_and_equal_the_cpu(dev):
+    rng = np.random.default_rng(3)
+    a, b = np.sort(rng.integers(0, 500, 400)), np.sort(rng.integers(0, 500, 300))
+    aw, bw = rng.integers(1, 9, 400), rng.integers(1, 9, 300)
+    before = dict(build.LAUNCHES)
+    assert ops.intersect_count(a, aw, b, bw) == ops.intersect_count(
+        a, aw, b, bw, device="cpu")
+    np.testing.assert_array_equal(ops.match_counts(a, b, bw),
+                                  ops.match_counts(a, b, bw, device="cpu"))
+    seg, bkt = np.sort(rng.integers(-1, 50, 900)), rng.integers(0, 128, 900)
+    np.testing.assert_array_equal(ops.predicate_bitmaps(seg, bkt, 50),
+                                  ops.predicate_bitmaps(seg, bkt, 50, device="cpu"))
+    sa = rng.integers(0, 2**63, (9, 256), dtype=np.uint64)
+    sb = rng.integers(0, 2**63, (11, 256), dtype=np.uint64)
+    np.testing.assert_array_equal(ops.signature_overlap(sa, sb),
+                                  ops.signature_overlap(sa, sb, device="cpu"))
+    for k in ("sorted_intersect", "join_count", "seg_bitmap", "summary_probe"):
+        assert build.LAUNCHES[k] == before[k] + 1
+
+
+def test_device_cs_on_the_card_equals_cpu(dev):
+    rng = np.random.default_rng(5)
+    s = rng.integers(0, 5000, 200_000).astype(np.int32)
+    p = rng.integers(0, 300, 200_000).astype(np.int32)
+    got = compute_characteristic_sets_torch(s, p)
+    want = compute_characteristic_sets_torch(s, p, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+def test_federated_cps_ops_on_the_card_equal_cpu(dev):
+    from repro_torch.core.federation import (build_federated_stats,
+                                             compute_federated_cps_ops)
+    from repro_torch.rdf.generator import fedbench_like_spec, generate_federation
+
+    fed, _ = generate_federation(fedbench_like_spec(scale=0.5))
+    stats = build_federated_stats(fed)
+    got = compute_federated_cps_ops(stats.exports, stats.summaries)
+    want = compute_federated_cps_ops(stats.exports, stats.summaries, device="cpu")
+    assert got.keys() == want.keys()
+    for key, g in got.items():
+        w = want[key]
+        np.testing.assert_array_equal(g.candidates, w.candidates)
+        assert g.pairs == w.pairs and g.n_checked_pairs == w.n_checked_pairs
+        for f in ("pred", "cs1", "cs2", "count"):
+            np.testing.assert_array_equal(getattr(g.cps, f), getattr(w.cps, f))
+            np.testing.assert_array_equal(getattr(g.match_cps, f),
+                                          getattr(w.match_cps, f))

@@ -17,6 +17,7 @@ from repro.core.cost import CostModel as RefCostModel  # noqa: E402
 from repro.rdf.shapes import shaped_planning_inputs as ref_shaped  # noqa: E402
 from repro_torch.core import join_order as jo        # noqa: E402
 from repro_torch.core.cost import CostModel          # noqa: E402
+from repro_torch.kernels import build               # noqa: E402
 from repro_torch.kernels import dp_layer as K        # noqa: E402
 from repro_torch.rdf.shapes import shaped_planning_inputs  # noqa: E402
 from test_torch_cuda import _sweep_inputs            # noqa: E402
@@ -64,7 +65,7 @@ def test_dp_sweep_plain_matches_reference_resident(ref_kernels, shape, n, B,
     conn = rsched.layer_cols[rsched.layer_cols < size]
     arrays = _sweep_inputs(n, conn, B, seed + 10, n_excl=12)
     sched = jo.from_reference_schedule(rsched)
-    before = dict(K.LAUNCHES)
+    before = dict(build.LAUNCHES)
     for params in PARAMS:
         got = _port_sweep(sched, params, arrays)
         want = ref_dp.dp_sweep_resident(
@@ -76,7 +77,7 @@ def test_dp_sweep_plain_matches_reference_resident(ref_kernels, shape, n, B,
             np.testing.assert_array_equal(g_, np.asarray(w_))
             np.testing.assert_array_equal(g_, o_)
         assert (got[1] != 0).any()
-    assert K.LAUNCHES == before          # the plain version launches nothing
+    assert build.LAUNCHES == before          # the plain version launches nothing
 
 
 def test_port_schedule_equals_reference_schedule():

@@ -57,6 +57,18 @@ def test_port_files_found():
             "core/planner.py", "engine/local.py"} <= names
 
 
+def test_stats_kernel_modules_are_scanned():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"kernels/build.py", "kernels/ops.py", "kernels/sorted_intersect.py",
+            "kernels/join_count.py", "kernels/summary_probe.py",
+            "kernels/seg_bitmap.py", "core/characteristic_sets.py"} <= names
+    csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels"
+                             / "csrc").glob("*.cu")}
+    assert {"sorted_intersect.cu", "join_count.cu", "summary_probe.cu",
+            "seg_bitmap.cu", "dp_sweep.cu", "dp_layer.cu"} <= csrc
+
+
 def test_entry_points_default_to_the_card():
     from repro_torch.core import join_order as jo
     from repro_torch.core.planner import OdysseyOptimizer
@@ -70,3 +82,18 @@ def test_entry_points_default_to_the_card():
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda"
         assert params["dp_backend"].default == "torch"
+
+
+def test_stats_entry_points_default_to_the_card():
+    from repro_torch.core.characteristic_sets import \
+        compute_characteristic_sets_torch
+    from repro_torch.core.federation import compute_federated_cps_ops
+    from repro_torch.kernels import build, ops
+
+    assert ops.DEFAULT_DEVICE == "cuda"
+    for fn in (ops.intersect_count, ops.predicate_bitmaps, ops.match_counts,
+               ops.signature_overlap, compute_characteristic_sets_torch,
+               compute_federated_cps_ops):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert set(build.SOURCES) == {"dp_sweep", "dp_layer", "sorted_intersect",
+                                  "join_count", "summary_probe", "seg_bitmap"}
