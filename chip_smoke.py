@@ -5,7 +5,7 @@
 
 Each phase prints one JSON line:
 
-``build``       compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+``build``       compile the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a (into the ignored ``build/kernels/``),
                 one nvcc per source, all started together;
 ``kernels``     each kernel against its plain PyTorch version on the card,
@@ -32,14 +32,29 @@ Each phase prints one JSON line:
                 ``match_counts``, against ``build_federated_stats``'s;
                 then, outside the counted window, each statistics kernel
                 against its plain version on its largest main-path input,
-                with device times of calls queued back to back.
+                with device times of calls queued back to back;
+``lm``          LM serving at full published width, float32, TF32 off:
+                ``qwen2-0.5b`` (24 layers, 494 M params; 8 requests of
+                512-3072 prompt tokens, 32 new each, on 4 slots of a 4096
+                cache) and ``falcon-mamba-7b`` (64 layers, 7.27 G params,
+                29.1 GB; 4 requests of 256-1024 tokens, 16 new each, on 2
+                slots), weights drawn on the card from a seeded generator,
+                through ``ServeEngine`` with prefill admission: the flash
+                attention kernel in every qwen2 prefill layer, the
+                selective-scan kernel in every falcon-mamba one.  Then,
+                outside the counted window, the shortest and longest request
+                of each again token by token (plain decode), tokens and
+                logits held to the prefill run's, and each LM kernel against
+                its plain version at the main path's full-width shapes, with
+                device times, bounds and a library yardstick.
 
-The main path is ``fedbench``, ``large_star`` and ``stats`` running once,
-with the launch counts set to 0 just before and read just after; the plan
-comparisons with the numpy backend and all timings run after that read, so
-their own launches are not counted.  Then the card's name and power limit,
-one JSON line with every kernel's launches on the main path, error against
-its plain version, time and bound, and last ``{"ok": true, "device": ...}``.
+The main paths are ``fedbench``, ``large_star`` and ``stats`` running once,
+then ``lm``, each window with the launch counts set to 0 just before and
+read just after; the plan comparisons with the numpy backend, the kernel
+checks and all timings run outside those windows, so their own launches are
+not counted.  Then the card's name and power limit, one JSON line with every
+kernel's launches on the main paths, error against its plain version, time
+and bound, and last ``{"ok": true, "device": ...}``.
 No phase catches its own failure: any failure exits non-zero.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -907,6 +922,377 @@ def check_stats(state: dict) -> None:
     emit("stats", nvidia_smi=state["smi"], **state["stats"], kernels=rows)
 
 
+# --------------------------------------------------------------------------
+# lm: the serving path of the LM substrate at full width
+# --------------------------------------------------------------------------
+
+# (arch, engine slots, cache length, requests, prompt lengths drawn in
+# [lo, hi], new tokens per request)
+LM_CELLS = (("qwen2-0.5b", 4, 4096, 8, (512, 3072), 32),
+            ("falcon-mamba-7b", 2, 2048, 4, (256, 1024), 16))
+LM_SEED = 13
+# float32 logits of two runs that sum in different orders (prefill through
+# the kernels against token-by-token decode through the plain path):
+# |a - b| <= LOGIT_ATOL + LOGIT_RTOL * |b|; a top-2 gap under the same bound
+# is a near-tie, where the greedy tokens may split
+LOGIT_ATOL = LOGIT_RTOL = 1e-3
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_flash_attention.py:38-39
+SCAN_TOL = 2e-4                                    # tests/test_ssm_kernel.py:31-32
+SCAN_SEQ = 1024
+FLASH_WINDOW = 1024
+FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+LM_KERNELS = (("flash_attention", "src/repro/kernels/flash_attention.py:79"),
+              ("ssm_scan", "src/repro/kernels/ssm_scan.py:64"))
+
+
+class _StageClock:
+    """Host time of the engine's prefill and decode calls, each closed by a
+    device synchronisation: wraps the model module's two entry points (the
+    engine calls them through the module) while installed."""
+
+    def __init__(self, mdl):
+        self.mdl = mdl
+        self.s = {"prefill": 0.0, "decode": 0.0}
+        self.n = {"prefill": 0, "decode": 0}
+        self.orig = (mdl.prefill_with_caches, mdl.decode_step)
+
+    def _wrap(self, stage, fn):
+        import torch
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[stage] += time.perf_counter() - t0
+            self.n[stage] += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        self.mdl.prefill_with_caches = self._wrap("prefill", self.orig[0])
+        self.mdl.decode_step = self._wrap("decode", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mdl.prefill_with_caches, self.mdl.decode_step = self.orig
+
+
+def _lm_prompts(cfg, n_req: int, lo: int, hi: int):
+    import numpy as np
+
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(lo, hi + 1, n_req)
+    return [rng.integers(1, cfg.vocab, int(n)).tolist() for n in lens]
+
+
+def _serve(cfg, params, prompts, n_slots: int, ctx: int, max_new: int,
+           use_prefill: bool):
+    """Serve ``prompts`` on a fresh engine; (finished requests by rid, wall
+    seconds, stage clock)."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, n_slots=n_slots, ctx_len=ctx,
+                      use_prefill=use_prefill, device=DEVICE,
+                      keep_logits=True)
+    torch.cuda.synchronize()
+    with _StageClock(MDL) as clock:
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=list(p), max_new=max_new))
+        done = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if len(done) != len(prompts):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests served")
+    return sorted(done, key=lambda r: r.rid), wall, clock, eng
+
+
+def phase_lm(state: dict) -> None:
+    """Serve each LM configuration at its published width once, with
+    prefill admission (the flash attention kernel in qwen2's 24 layers, the
+    selective-scan kernel in falcon-mamba's 64), weights drawn on the card
+    from a seeded generator.  The token-by-token comparison, the kernels'
+    checks and their timings run later, in ``check_lm``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models import model as MDL
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("lm_setup", allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         float32_matmul_precision=torch.get_float32_matmul_precision(),
+         device_bytes_in_use=torch.cuda.memory_allocated())
+    state["lm_runs"], state["lm"] = [], {}
+    for arch, n_slots, ctx, n_req, (lo, hi), max_new in LM_CELLS:
+        cfg = get_arch(arch)
+        gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+        t0 = time.perf_counter()
+        params = MDL.init_params(cfg, gen, torch.float32, DEVICE)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        prompts = _lm_prompts(cfg, n_req, lo, hi)
+        l0 = dict(LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        done, wall, clock, eng = _serve(cfg, params, prompts, n_slots, ctx,
+                                        max_new, use_prefill=True)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
+        kname = "ssm_scan" if cfg.family == "ssm" else "flash_attention"
+        if launches[kname] != cfg.n_layers * len(prompts):
+            raise AssertionError(f"{arch}: {launches[kname]} {kname} launches, "
+                                 f"expected {cfg.n_layers} per prefill")
+        for r in done:
+            if len(r.out) != max_new or not all(0 <= t < cfg.vocab
+                                                for t in r.out):
+                raise AssertionError(f"{arch}: request {r.rid} gave {r.out}")
+            if not all(bool(torch.isfinite(x).all()) for x in r.logits):
+                raise AssertionError(f"{arch}: non-finite logits")
+        n_prefill = sum(len(p) for p in prompts)
+        n_gen = sum(len(r.out) for r in done)
+        n_decoded = n_gen - clock.n["prefill"]     # tokens from decode steps
+        state["lm"][arch] = dict(
+            layers=cfg.n_layers, depth_cut=False, d_model=cfg.d_model,
+            params=sum(t.numel() for t in _tensors(params)),
+            n_slots=n_slots, ctx_len=ctx, requests=len(prompts),
+            prompt_lens=[len(p) for p in prompts], max_new=max_new,
+            prefill_tokens=n_prefill, generated_tokens=n_gen,
+            decode_tokens=n_decoded, decode_steps=eng.serve_stats.n_steps,
+            wall_s=wall, init_s=t_init, prefill_s=clock.s["prefill"],
+            decode_s=clock.s["decode"],
+            host_s=wall - clock.s["prefill"] - clock.s["decode"],
+            prefill_tok_s=n_prefill / clock.s["prefill"],
+            decode_tok_s=n_decoded / clock.s["decode"],
+            peak_device_bytes=peak, launches=launches)
+        emit("lm", model=arch, nvidia_smi=state["smi"], **state["lm"][arch])
+        state["lm_runs"].append((cfg, params, prompts, done, n_slots, ctx,
+                                 max_new))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def _compare_serving(got, want) -> "tuple[int, float]":
+    """One request's tokens and logits rows from two runs: equal tokens
+    wherever either run's top-2 gap exceeds the logit tolerance, logits
+    within it up to the first near-tie that splits the runs.  Returns (near
+    ties, largest |logit difference| compared)."""
+    import torch
+
+    ties, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(got.out, want.out)):
+        ra, rb = got.logits[i], want.logits[i]
+        gaps = []
+        for row in (ra, rb):
+            top = torch.topk(row, 2).values
+            gaps.append((float(top[0] - top[1]),
+                         LOGIT_ATOL + LOGIT_RTOL * float(top[0].abs())))
+        near = all(g <= bound for g, bound in gaps)
+        ties += near
+        if a != b:
+            if not near:
+                raise AssertionError(f"request {got.rid}, token {i}: {a} vs "
+                                     f"{b} with top-2 gaps {gaps}")
+            break
+        diff = (ra - rb).abs()
+        worst = max(worst, float(diff.max()))
+        if bool((diff > LOGIT_ATOL + LOGIT_RTOL * rb.abs()).any()):
+            raise AssertionError(f"request {got.rid}, token {i}: logits differ "
+                                 f"by up to {float(diff.max())}")
+    return ties, worst
+
+
+def _layer0_flash_inputs(cfg, params, prompt):
+    """The rope'd q, k, v of layer 0 on ``prompt`` (the flash kernel's
+    main-path inputs at that length)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    toks = torch.tensor([prompt], device=DEVICE)
+    lp = params["layers"][0]
+    h = L.rmsnorm(params["embed"][toks], lp["mixer_norm"], cfg.norm_eps)
+    pos = torch.arange(len(prompt), device=DEVICE)[None]
+    return L._project_qkv(lp["mixer"], cfg, h, pos)
+
+
+def _layer0_scan_inputs(cfg, params, prompt):
+    """The selective scan's inputs of layer 0 on ``prompt``: (dt, B_t, C_t,
+    x, A), as ``mamba_prefill`` hands them to ``ops.selective_scan``."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+
+    toks = torch.tensor([prompt], device=DEVICE)
+    lp = params["layers"][0]
+    h = L.rmsnorm(params["embed"][toks], lp["mixer_norm"], cfg.norm_eps)
+    xc, _, _, _ = M._conv_in(lp["mixer"], cfg, h)
+    dt, bt, ct = M._ssm_params(lp["mixer"], cfg, xc)
+    return dt, bt, ct, xc.float().contiguous(), \
+        (-torch.exp(lp["mixer"]["A_log"])).contiguous()
+
+
+def check_lm(state: dict) -> None:
+    """Per configuration: the shortest and the longest request again on an
+    engine without prefill (token by token through the plain attention and
+    recurrence, the reference's ``test_serve_prefill_admission_matches_reference``
+    contract) against the main path's prefill run; then each LM kernel
+    against its plain version at the main path's full-width shapes, with
+    device times, bounds and the library yardstick."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    kernels = {}
+    for cfg, params, prompts, done, n_slots, ctx, max_new in state.pop("lm_runs"):
+        lens = [len(p) for p in prompts]
+        pick = [int(np.argmin(lens)), int(np.argmax(lens))]
+        t0 = time.perf_counter()
+        plain, _, _, _ = _serve(cfg, params, [prompts[i] for i in pick],
+                                n_slots, ctx, max_new, use_prefill=False)
+        ties, worst, first = 0, 0.0, 0.0
+        for want, i in zip(plain, pick):
+            t, w = _compare_serving(done[i], want)
+            ties, worst = ties + t, max(worst, w)
+            first = max(first, float((done[i].logits[0]
+                                      - want.logits[0]).abs().max()))
+        state["lm"][cfg.name].update(
+            token_by_token=dict(requests=[lens[i] for i in pick],
+                                seconds=time.perf_counter() - t0,
+                                near_ties=ties, max_logit_diff=worst,
+                                prefill_last_logit_diff=first,
+                                logit_atol=LOGIT_ATOL, logit_rtol=LOGIT_RTOL))
+        longest = prompts[pick[1]]
+        if cfg.family == "ssm":
+            rng = np.random.default_rng(LM_SEED + 1)
+            seq = rng.integers(1, cfg.vocab, SCAN_SEQ).tolist()
+            args = _layer0_scan_inputs(cfg, params, seq)
+            kernels["ssm_scan"] = _check_scan(args, SS)
+        else:
+            q, k, v = _layer0_flash_inputs(cfg, params, longest)
+            kernels["flash_attention"] = _check_flash(q, k, v, FA, F)
+        del params, done, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    state["lm_kernels"] = kernels
+    for arch, row in state["lm"].items():
+        emit("lm_check", model=arch, nvidia_smi=state["smi"],
+             **row["token_by_token"])
+    emit("lm_kernels", nvidia_smi=state["smi"], **kernels)
+
+
+def _allclose(got, want, tol: float) -> bool:
+    """Finite, and ``|got - want| <= tol + tol * |want|`` everywhere (the
+    reference tests' ``assert_allclose(rtol=tol, atol=tol)``)."""
+    import torch
+
+    return bool(torch.isfinite(got).all()) and \
+        bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _check_flash(q, k, v, FA, F) -> dict:
+    """The flash kernel against its plain version at qwen2's full-width
+    prefill shape (float32 and bfloat16, causal, and causal with a window),
+    device times of the float32 causal call, its bound and the time of
+    ``scaled_dot_product_attention`` on the same inputs (KV heads repeated
+    beforehand, outside the timing)."""
+    import torch
+
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    errs = {}
+    for dtype, tol in FLASH_TOL.items():
+        dt = getattr(torch, dtype)
+        a = [t.to(dt).contiguous() for t in (q, k, v)]
+        for window in (0, FLASH_WINDOW):
+            got = FA.flash_attention(*a, causal=True, window=window).float()
+            want = FA.flash_attention_plain(*a, causal=True,
+                                            window=window).float()
+            if not _allclose(got, want, tol):
+                raise AssertionError(f"flash_attention {dtype} window={window}"
+                                     f" differs from its plain version by "
+                                     f"{float((got - want).abs().max())}")
+            errs[f"{dtype}_window{window}"] = float((got - want).abs().max())
+    args = [t.contiguous() for t in (q, k, v)]
+    kms, queued = queued_ms(lambda: FA.flash_attention(*args), k=10)
+    if not queued:
+        raise AssertionError("flash_attention: the host fell behind the card")
+    pms, plain_queued = queued_ms(lambda: FA.flash_attention_plain(*args), k=3)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = float((lib.transpose(1, 2) - FA.flash_attention(*args)).abs().max())
+    lms, lib_queued = queued_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), k=10)
+    visible = S * (S + 1) // 2                    # causal (query, key) pairs
+    ops = 4 * B * H * hd * visible                # QK^T and PV, 2 flops a MAC
+    nbytes = 4 * B * S * hd * (2 * H + 2 * KV)    # q, k, v read, o written
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bf16_bound = max(nbytes / 2 / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    return {"shape": [B, S, H, KV, hd], "max_abs_err": max(errs.values()),
+            "errors": errs, "kernel_ms": kms, "plain_ms": pms,
+            "plain_queued": plain_queued, "library_ms": lms,
+            "library_queued": lib_queued, "library_max_abs_diff": lib_err,
+            "flops": ops, "bytes": nbytes, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bf16_bound_ms": bf16_bound, "achieved_tflop_s": ops / kms / 1e9}
+
+
+def _check_scan(args, SS) -> dict:
+    """The scan kernel against its plain version at falcon-mamba's
+    full-width prefill shape, final state included, with device times and
+    the compulsory-bytes bound (no single PyTorch call computes the scan)."""
+    dt, bt, ct, x, a = args
+    B, S, D = x.shape
+    N = bt.shape[2]
+    y, h = SS.ssm_scan(*args)
+    y0, h0 = SS.ssm_scan_plain(*args)
+    err = max(float((y - y0).abs().max()), float((h - h0).abs().max()))
+    if not (_allclose(y, y0, SCAN_TOL) and _allclose(h, h0, SCAN_TOL)):
+        raise AssertionError(f"ssm_scan differs from its plain version by "
+                             f"{err}")
+    kms, queued = queued_ms(lambda: SS.ssm_scan(*args), k=20)
+    if not queued:
+        raise AssertionError("ssm_scan: the host fell behind the card")
+    pms, plain_queued = queued_ms(lambda: SS.ssm_scan_plain(*args), k=2)
+    # dt, x read and y written (B, S, D); bt, ct read (B, S, N); a read and
+    # the final state written (D, N) per row
+    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N)
+    ops = B * S * D * (6 * N + 1)        # dt*a, exp, 2 for the update, *c, + per lane; dt*x
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"shape": [B, S, D, N], "max_abs_err": err, "y_max_abs": float(
+        y0.abs().max()), "kernel_ms": kms, "plain_ms": pms,
+        "plain_queued": plain_queued, "library_ms": None, "bytes": nbytes,
+        "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
 def summary(state: dict) -> dict:
     ls = state["large_star"]
     sweep, tile = ls["clique12"], ls["chain20"]
@@ -938,7 +1324,18 @@ def summary(state: dict) -> dict:
          "ms": st[name]["kernel_ms"], "plain_ms": st[name]["plain_ms"],
          "bound_ms": st[name]["bound_ms"], "bound_by": st[name]["bound_by"],
          "library_ms": st[name]["library_ms"]}
-        for name, replaces in STATS_KERNELS]}
+        for name, replaces in STATS_KERNELS] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces,
+         "launches": state["main_launches"][name],
+         "max_abs_err": state["lm_kernels"][name]["max_abs_err"],
+         "ms": state["lm_kernels"][name]["kernel_ms"],
+         "plain_ms": state["lm_kernels"][name]["plain_ms"],
+         "bound_ms": state["lm_kernels"][name]["bound_ms"],
+         "bound_by": state["lm_kernels"][name]["bound_by"],
+         "library_ms": state["lm_kernels"][name]["library_ms"]}
+        for name, replaces in LM_KERNELS]}
 
 
 def main() -> int:
@@ -958,21 +1355,27 @@ def main() -> int:
     state: dict = {}
     phase_build(state)
     phase_kernels(state)
-    # the main path: counts set to 0 just before, read just after; the
-    # checks against the numpy backend and the timings come after the read
+    # each main path runs with the launch counts set to 0 just before and
+    # read just after; the checks against the numpy backend and the plain
+    # versions, and the timings, run outside those windows
     build.reset_launches()
     for k in jo.DP_SWEEP_COUNTERS:
         jo.DP_SWEEP_COUNTERS[k] = 0
     phase_fedbench(state)
     phase_large_star(state)
     phase_stats(state)
-    state["main_launches"] = dict(build.LAUNCHES)
-    for k, v in state["main_launches"].items():
-        if v == 0:
-            raise AssertionError(f"{k} was never launched on the main path")
+    launches = dict(build.LAUNCHES)
     check_fedbench(state)
     check_large_star(state)
     check_stats(state)
+    build.reset_launches()
+    phase_lm(state)
+    state["main_launches"] = {k: launches.get(k, 0) + v
+                              for k, v in build.LAUNCHES.items()}
+    for k, v in state["main_launches"].items():
+        if v == 0:
+            raise AssertionError(f"{k} was never launched on the main path")
+    check_lm(state)
     print(state["smi"], flush=True)
     print(json.dumps(summary(state)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -171,7 +171,11 @@ def star_source_cardinalities(star: Star, stats: FederatedStats,
 
 def order_star_patterns(star: Star, stats: FederatedStats, sel: SourceSelection,
                         distinct: bool) -> list[TriplePattern]:
-    """§3.1 greedy: drop the pattern absent from the cheapest (k-1)-subset."""
+    """§3.1 greedy: drop the pattern absent from the cheapest (k-1)-subset.
+
+    Subsets are taken over positions, so a star that holds the same bound
+    pattern twice keeps both copies (the reference drops by value and raises
+    IndexError there); on every other star the order is the reference's."""
     patterns = list(star.patterns)
     bound = [tp for tp in patterns if isinstance(tp.p, Const)]
     unbound = [tp for tp in patterns if not isinstance(tp.p, Const)]
@@ -181,17 +185,17 @@ def order_star_patterns(star: Star, stats: FederatedStats, sel: SourceSelection,
     order_tail: list[TriplePattern] = []
     current = bound
     while len(current) > 2:
-        best_sub = None
+        best_keep = None
         best_card = None
-        for sub in combinations(current, len(current) - 1):
-            preds = [tp.p.tid for tp in sub]
+        for keep in combinations(range(len(current)), len(current) - 1):
+            preds = [current[i].p.tid for i in keep]
             card = star_cardinality(star, stats, sel, distinct, preds)
             if best_card is None or card < best_card:
                 best_card = card
-                best_sub = sub
-        dropped = [tp for tp in current if tp not in best_sub][0]
-        order_tail.append(dropped)
-        current = list(best_sub)
+                best_keep = keep
+        dropped = next(i for i in range(len(current)) if i not in best_keep)
+        order_tail.append(current[dropped])
+        current = [current[i] for i in best_keep]
     # order the final pair: cheaper single pattern first
     c0 = star_cardinality(star, stats, sel, distinct, [current[0].p.tid])
     c1 = star_cardinality(star, stats, sel, distinct, [current[1].p.tid])

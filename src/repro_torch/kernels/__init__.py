@@ -15,12 +15,17 @@ PyTorch version (sources under ``csrc/``; built and launched through
   * ``summary_probe`` -- popcount of the pairwise AND of entity-summary
     signatures (replaces ``summary_probe``);
   * ``seg_bitmap`` -- (segment, predicate bucket) counts for per-subject
-    predicate bitmaps (replaces ``seg_bitmap``).
+    predicate bitmaps (replaces ``seg_bitmap``);
+  * ``flash_attention`` -- online-softmax attention with grouped KV heads,
+    the LM prefill's attention (replaces ``flash_attention``);
+  * ``ssm_scan`` -- the Mamba-1 selective scan with its final state, the
+    Mamba prefill's scan (replaces ``ssm_scan``).
 
-``ops.py`` holds the statistics kernels' host entry points
-(``intersect_count``, ``predicate_bitmaps``, ``match_counts``,
-``signature_overlap``).  Importing this package registers every kernel, so
-``build.build_kernels()`` builds all six.
+``ops.py`` holds the host entry points (``intersect_count``,
+``predicate_bitmaps``, ``match_counts``, ``signature_overlap``,
+``flash_attention_gqa``, ``selective_scan``).  Importing this package
+registers every kernel, so ``build.build_kernels()`` builds all eight.
 """
-from repro_torch.kernels import (dp_layer, join_count, seg_bitmap,  # noqa: F401
-                                 sorted_intersect, summary_probe)
+from repro_torch.kernels import (dp_layer, flash_attention,  # noqa: F401
+                                 join_count, seg_bitmap, sorted_intersect,
+                                 ssm_scan, summary_probe)

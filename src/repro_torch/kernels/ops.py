@@ -1,7 +1,7 @@
-"""Host entry points for the statistics kernels: arrays in, numpy or int out.
+"""Host entry points of the kernels.
 
-The port's counterpart of the reference's ``kernels/ops.py`` statistics
-wrappers.  Each takes numpy arrays (or tensors, which stay where they are
+The statistics kernels take arrays and return numpy or int: the port's
+counterpart of the reference's ``kernels/ops.py`` statistics wrappers.  Each takes numpy arrays (or tensors, which stay where they are
 when already on ``device``), moves them to ``device`` as int32, runs the
 kernel wrapper, and returns host values.  ``device`` is ``"cuda"`` unless
 the caller asks for the CPU, where the wrappers run their plain versions.
@@ -9,14 +9,20 @@ the caller asks for the CPU, where the wrappers run their plain versions.
 What the reference needed only for its TPU blocks is gone: the block
 padding (``_pad_to``, ``_pad2`` and the ``-1``/``-2`` sentinels), since the
 kernels take any extent, and ``set_interpret``.
+
+The LM kernels take and return tensors on their own device:
+``flash_attention_gqa`` (prefill attention) and ``selective_scan`` (the
+Mamba prefill), the reference's ``kernels/ops.py:84-104``.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.join_count import join_count
 from repro_torch.kernels.seg_bitmap import seg_bitmap
 from repro_torch.kernels.sorted_intersect import sorted_intersect
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.summary_probe import summary_probe
 
 DEFAULT_DEVICE = "cuda"
@@ -58,6 +64,25 @@ def signature_overlap(a_sig, b_sig, device=DEFAULT_DEVICE) -> np.ndarray:
     a32 = _u64_to_i32(np.asarray(a_sig))
     b32 = _u64_to_i32(np.asarray(b_sig))
     return summary_probe(_i32(a32, device), _i32(b32, device)).cpu().numpy()
+
+
+def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0):
+    """Grouped-query attention of ``q`` ``(B, S, H, hd)`` over ``k``, ``v``
+    ``(B, S, KV, hd)`` with the ``hd ** -0.5`` scale, on the tensors'
+    device: ``(B, S, H, hd)`` in ``q``'s type.  The KV heads are indexed per
+    query head inside the kernel, not repeated as the reference's wrapper
+    does."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window)
+
+
+def selective_scan(dt, bt, ct, x, a):
+    """Mamba selective scan (see ``kernels/ssm_scan.py``) on the tensors'
+    device: ``(y (B, S, D), h_last (B, D, N))``.  Unlike the reference's
+    wrapper it returns the final state too, and has no ``chunk``: the
+    kernel walks the whole sequence."""
+    return ssm_scan(dt.contiguous(), bt.contiguous(), ct.contiguous(),
+                    x.contiguous(), a.contiguous())
 
 
 def _u64_to_i32(x: np.ndarray) -> np.ndarray:

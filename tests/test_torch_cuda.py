@@ -263,3 +263,129 @@ def test_federated_cps_ops_on_the_card_equal_cpu(dev):
             np.testing.assert_array_equal(getattr(g.cps, f), getattr(w.cps, f))
             np.testing.assert_array_equal(getattr(g.match_cps, f),
                                           getattr(w.match_cps, f))
+
+
+# --------------------------------------------------------------------------
+# the LM kernels: flash attention and the selective scan
+# --------------------------------------------------------------------------
+
+def _qkv(rng, B, S, H, KV, hd, dtype):
+    mk = lambda h: torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(
+        np.float32)).to(dtype)
+    return mk(H), mk(KV), mk(KV)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 200, 14, 2, 64),
+                                         (2, 256, 4, 2, 128),
+                                         (1, 129, 2, 1, 256),
+                                         (1, 3072, 14, 2, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0),
+                                           (False, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_equals_plain(dev, B, S, H, KV, hd, causal,
+                                             window, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dev) for t in _qkv(np.random.default_rng(S + hd), B, S,
+                                        H, KV, hd, dt))
+    before = build.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_gqa_on_card_equals_cpu(dev):
+    q, k, v = _qkv(np.random.default_rng(3), 2, 300, 8, 2, 128, torch.float32)
+    got = ops.flash_attention_gqa(q.to(dev), k.to(dev), v.to(dev), window=77)
+    want = ops.flash_attention_gqa(q, k, v, window=77)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_lm_kernels_reject_what_they_do_not_take(dev):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    q, k, v = (t.to(dev) for t in _qkv(np.random.default_rng(0), 1, 64, 2, 1,
+                                        32, torch.float32))
+    with pytest.raises(ValueError, match="head width"):
+        FA.flash_attention(q, k, v)
+    q, k, v = _qkv(np.random.default_rng(0), 1, 64, 2, 1, 64, torch.float32)
+    with pytest.raises(ValueError, match="expected"):
+        FA.flash_attention(q.to(dev), k, v.to(dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.to(dev).transpose(1, 2).contiguous().transpose(1, 2),
+                           k.to(dev), v.to(dev))
+    x = torch.zeros((1, 8, 4), device=dev)
+    bt = torch.zeros((1, 8, 40), device=dev)
+    with pytest.raises(ValueError, match="state width"):
+        SS.ssm_scan(x, bt, bt, x, torch.zeros((4, 40), device=dev))
+
+
+def _scan_inputs(rng, B, S, D, N):
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return (f(np.abs(rng.normal(0.1, 0.05, (B, S, D)))),
+            f(rng.normal(size=(B, S, N))), f(rng.normal(size=(B, S, N))),
+            f(rng.normal(size=(B, S, D))),
+            f(-np.abs(rng.normal(1.0, 0.3, (D, N)))))
+
+
+@pytest.mark.parametrize("B,S,D,N", [(1, 64, 256, 8), (2, 100, 300, 16),
+                                     (1, 37, 5, 32), (3, 0, 7, 16),
+                                     (1, 1024, 8192, 16)])
+def test_ssm_scan_kernel_equals_plain(dev, B, S, D, N):
+    from repro_torch.kernels import ssm_scan as SS
+
+    args = [t.to(dev) for t in _scan_inputs(np.random.default_rng(S + D), B,
+                                             S, D, N)]
+    before = build.LAUNCHES["ssm_scan"]
+    y, h = SS.ssm_scan(*args)
+    assert build.LAUNCHES["ssm_scan"] == before + 1
+    y0, h0 = SS.ssm_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, D) and h.shape == (B, D, N)
+    torch.testing.assert_close(y, y0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+def test_lm_prefill_and_serving_on_card_equal_cpu(dev, arch):
+    """A narrow model (head width 64, so the flash kernel takes it) served
+    on the card through both kernels gives the CPU's prefill logits, caches
+    and greedy tokens."""
+    from repro_torch.config.base import reduced_config
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MDL
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config(get_arch(arch), head_dim=64)
+    cpu = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    card = {k: v.to(dev) for k, v in cpu.items() if k != "layers"}
+    card["layers"] = [{k: ({n: t.to(dev) for n, t in v.items()}
+                           if isinstance(v, dict) else v.to(dev))
+                       for k, v in lp.items()} for lp in cpu["layers"]]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (1, 150)))
+    before = dict(build.LAUNCHES)
+    got, gc = MDL.prefill_with_caches(cfg, card, toks.to(dev), 192)
+    kname = "ssm_scan" if arch.startswith("falcon") else "flash_attention"
+    assert build.LAUNCHES[kname] == before[kname] + cfg.n_layers
+    want, wc = MDL.prefill_with_caches(cfg, cpu, toks, 192)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(gc, wc):
+        for key in b:
+            torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                       atol=1e-4)
+    outs = []
+    for params, device in ((card, dev), (cpu, "cpu")):
+        eng = ServeEngine(cfg, params, n_slots=2, ctx_len=192,
+                          use_prefill=True, device=device)
+        for i, n in enumerate((150, 40, 7)):
+            eng.submit(Request(rid=i, prompt=toks[0, :n].tolist(), max_new=6))
+        outs.append([r.out for r in sorted(eng.drain(), key=lambda r: r.rid)])
+    assert outs[0] == outs[1]

@@ -96,4 +96,24 @@ def test_stats_entry_points_default_to_the_card():
                compute_federated_cps_ops):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert set(build.SOURCES) == {"dp_sweep", "dp_layer", "sorted_intersect",
-                                  "join_count", "summary_probe", "seg_bitmap"}
+                                  "join_count", "summary_probe", "seg_bitmap",
+                                  "flash_attention", "ssm_scan"}
+
+
+def test_lm_entry_points_default_to_the_card():
+    from repro_torch.kernels.build import SOURCES
+    from repro_torch.models import model as MDL
+    from repro_torch.serve.engine import ServeEngine
+
+    for fn in (MDL.init_params, MDL.init_decode_caches):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(ServeEngine).parameters["device"].default == "cuda"
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"models/model.py", "models/layers.py", "models/mamba.py",
+            "models/convert.py", "serve/engine.py", "serve/base.py",
+            "config/base.py", "configs/__init__.py",
+            "kernels/flash_attention.py", "kernels/ssm_scan.py"} <= names
+    for name in ("flash_attention", "ssm_scan"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / SOURCES[name]).is_file()

@@ -134,3 +134,68 @@ def test_unknown_backend_rejected():
     g, stats, sel, q = shaped_planning_inputs("chain", 3, seed=1)
     with pytest.raises(ValueError):
         jo.dp_join_order(g, stats, sel, dp_backend="jax", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def fed_stars():
+    """Stars of the FedBench-like workload with their statistics and source
+    selections, in both packages (same seeds)."""
+    from repro.core.decomposition import decompose as ref_decompose
+    from repro.core.federation import build_federated_stats as ref_build
+    from repro.core.source_selection import select_sources as ref_select
+    from repro.rdf.generator import fedbench_like_spec as ref_spec
+    from repro.rdf.generator import generate_federation as ref_gen
+    from repro.rdf.generator import generate_workload as ref_workload
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.core.source_selection import select_sources
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation,
+                                           generate_workload)
+
+    out = []
+    for spec, gen, build, wl, dec, select in (
+            (fedbench_like_spec, generate_federation, build_federated_stats,
+             generate_workload, decompose, select_sources),
+            (ref_spec, ref_gen, ref_build, ref_workload, ref_decompose,
+             ref_select)):
+        fed, gt = gen(spec(scale=0.06, seed=3))
+        stats = build(fed)
+        items = []
+        for q in wl(fed, gt, seed=5):
+            g = dec(q)
+            items.append((g, select(g, stats), q.distinct))
+        out.append((stats, items))
+    return out
+
+
+def test_order_star_patterns_matches_reference(fed_stars):
+    """Dropping by position orders every star of the workload (no repeated
+    pattern there) exactly as the reference's drop by value."""
+    (stats, items), (rstats, ritems) = fed_stars
+    seen = 0
+    for (g, sel, distinct), (rg, rsel, _) in zip(items, ritems):
+        for star, rstar in zip(g.stars, rg.stars):
+            got = jo.order_star_patterns(star, stats, sel, distinct)
+            want = ref_jo.order_star_patterns(rstar, rstats, rsel, distinct)
+            assert [repr(tp) for tp in got] == [repr(tp) for tp in want]
+            seen += len(star.bound_preds()) >= 3
+    assert seen > 0                     # the greedy drop loop really ran
+
+
+def test_order_star_patterns_duplicate_pattern(fed_stars):
+    """A star that holds the same bound pattern twice orders without
+    IndexError and keeps both copies."""
+    from repro_torch.core.decomposition import Star
+    from repro_torch.query.algebra import Const
+
+    (stats, items), _ = fed_stars
+    g, sel, distinct = next(
+        it for it in items if any(len(s.bound_preds()) >= 3
+                                  for s in it[0].stars))
+    star = next(s for s in g.stars if len(s.bound_preds()) >= 3)
+    twice = next(tp for tp in star.patterns if isinstance(tp.p, Const))
+    dup = Star(star.idx, star.subject, list(star.patterns) + [twice])
+    got = jo.order_star_patterns(dup, stats, sel, distinct)
+    assert sorted(map(repr, got)) == sorted(map(repr, dup.patterns))
+    assert sum(tp == twice for tp in got) == 2
