@@ -54,7 +54,8 @@ read just after; the plan comparisons with the numpy backend, the kernel
 checks and all timings run outside those windows, so their own launches are
 not counted.  Then the card's name and power limit, one JSON line with every
 kernel's launches on the main paths, error against its plain version, time
-and bound, and last ``{"ok": true, "device": ...}``.
+and bound (``dp_layer`` twice, at the largest tile of each tiled cell), and
+last ``{"ok": true, "device": ...}``.
 No phase catches its own failure: any failure exits non-zero.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -493,19 +494,14 @@ def check_fedbench(state: dict) -> None:
 
 
 class _Recorder:
-    """Wraps the kernel wrappers the planner calls to keep their inputs
-    (for replays) and, when ``timing`` is on, to time each call's kernel
-    and its plain version on the same inputs with CUDA events."""
+    """Wraps the kernel wrappers the planner calls to keep their inputs, for
+    replays outside the counted window."""
 
     def __init__(self, K):
         self.K = K
         self.real = (K.dp_sweep, K.dp_layer)
         self.sweeps: list = []
         self.tiles: list = []
-        self.timing = False
-        self.n_tiles = 0
-        self.kernel_ms = self.plain_ms = 0.0
-        self.err = 0.0
 
     def install(self) -> None:
         self.K.dp_sweep, self.K.dp_layer = self._sweep, self._layer
@@ -513,34 +509,13 @@ class _Recorder:
     def remove(self) -> None:
         self.K.dp_sweep, self.K.dp_layer = self.real
 
-    def _timed(self, kernel, plain, args):
-        import torch
-
-        if not self.timing:
-            return kernel(*args)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        out = kernel(*args)
-        ev[1].record()
-        ev[2].record()
-        ref = plain(*args)
-        ev[3].record()
-        ev[3].synchronize()
-        self.kernel_ms += ev[0].elapsed_time(ev[1])
-        self.plain_ms += ev[2].elapsed_time(ev[3])
-        self.err = max(self.err, max_abs_err(out, ref))
-        return out
-
     def _sweep(self, *args):
         self.sweeps.append(args)
-        return self._timed(self.real[0], self.K.dp_sweep_plain, args)
+        return self.real[0](*args)
 
     def _layer(self, *args):
-        big = max(self.tiles, key=lambda a: a[0].numel(), default=None)
-        if big is None or args[0].numel() > big[0].numel():
-            self.tiles = [args]                 # keep the largest tile only
-        self.n_tiles += 1
-        return self._timed(self.real[1], self.K.dp_layer_plain, args)
+        self.tiles.append(args)
+        return self.real[1](*args)
 
 
 def _plan_large_star(case, backend: str = "torch"):
@@ -593,8 +568,10 @@ def phase_large_star(state: dict) -> None:
 
 def check_large_star(state: dict) -> None:
     """Each large-star plan of the main path against the numpy backend's,
-    then the timings: the planning call, its kernel and the kernel's plain
-    version on the inputs the main path gave it (CUDA events)."""
+    then the timings: the planning call (CUDA events), its kernel and the
+    kernel's plain version on the inputs the main path gave it (the resident
+    sweep: CUDA events around one call; every ``dp_layer`` tile: device time
+    of calls queued back to back, ``queued_ms``)."""
     import torch
 
     from repro_torch.core import join_order as jo
@@ -633,24 +610,26 @@ def check_large_star(state: dict) -> None:
                                           for a in args[1:5]),
                        state_bytes=B * (1 << n) * (9 * 8 + 2 * 4))
         else:
-            timer = _Recorder(K)
-            timer.timing = True
-            timer.install()
-            try:
-                _plan_large_star(case)
-            finally:
-                timer.remove()
-            big = rec.tiles[0]
-            kms = cuda_ms(lambda: K.dp_layer(*big))
-            pms = cuda_ms(lambda: K.dp_layer_plain(*big))
-            err = max(timer.err, max_abs_err(K.dp_layer(*big),
-                                             K.dp_layer_plain(*big)))
+            # every tile of the main path replayed on the card: device time
+            # of calls queued back to back (a few microseconds a tile is
+            # below what one timed call can resolve from the host)
+            kms_all = [queued_ms(lambda: K.dp_layer(*a))[0]
+                       for a in rec.tiles]
+            pms_all = [queued_ms(lambda: K.dp_layer_plain(*a), k=3)[0]
+                       for a in rec.tiles]
+            err = max(max_abs_err(K.dp_layer(*a), K.dp_layer_plain(*a))
+                      for a in rec.tiles)
+            i_big = max(range(len(rec.tiles)),
+                        key=lambda i: rec.tiles[i][0].numel())
+            big = rec.tiles[i_big]
             bound, by = tile_bound(big)
-            row.update(tiles=timer.n_tiles, kernel_ms_sum=timer.kernel_ms,
-                       plain_ms_sum=timer.plain_ms, max_abs_err=err,
-                       device_busy_share=timer.kernel_ms / sweep_ms,
-                       largest_tile=list(big[0].shape), kernel_ms=kms,
-                       plain_ms=pms, bound_ms=bound, bound_by=by)
+            row.update(tiles=len(rec.tiles), kernel_ms_sum=sum(kms_all),
+                       plain_ms_sum=sum(pms_all), max_abs_err=err,
+                       device_busy_share=sum(kms_all) / sweep_ms,
+                       largest_tile=list(big[0].shape),
+                       kernel_ms=kms_all[i_big], plain_ms=pms_all[i_big],
+                       bound_ms=bound, bound_by=by,
+                       bound_ms_sum=sum(tile_bound(a)[0] for a in rec.tiles))
         if err != 0.0:
             raise AssertionError(f"{shape}{n}: kernel differs from its "
                                  f"plain version by {err}")
@@ -942,8 +921,13 @@ SCAN_SEQ = 1024
 FLASH_WINDOW = 1024
 FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 LM_KERNELS = (("flash_attention", "src/repro/kernels/flash_attention.py:79"),
               ("ssm_scan", "src/repro/kernels/ssm_scan.py:64"))
+# keys of an LM kernel's row carried into the summary line beside the common
+# ones (flash: its route's bound, the float32 CUDA-core bound, bf16 timings)
+LM_EXTRA_KEYS = ("bound_route", "fp32_cuda_core_bound_ms", "bf16_ms",
+                 "bf16_library_ms", "bf16_bound_ms", "bf16_max_abs_err")
 
 
 class _StageClock:
@@ -1218,9 +1202,10 @@ def _allclose(got, want, tol: float) -> bool:
 def _check_flash(q, k, v, FA, F) -> dict:
     """The flash kernel against its plain version at qwen2's full-width
     prefill shape (float32 and bfloat16, causal, and causal with a window),
-    device times of the float32 causal call, its bound and the time of
-    ``scaled_dot_product_attention`` on the same inputs (KV heads repeated
-    beforehand, outside the timing)."""
+    device times of the causal call in both types, their bounds and the
+    time of ``scaled_dot_product_attention`` on the same inputs (KV heads
+    repeated beforehand, outside the timing).  ``max_abs_err`` is the
+    float32 one (the main path's type), ``bf16_max_abs_err`` the bf16 one."""
     import torch
 
     B, S, H, hd = q.shape
@@ -1243,25 +1228,56 @@ def _check_flash(q, k, v, FA, F) -> dict:
     if not queued:
         raise AssertionError("flash_attention: the host fell behind the card")
     pms, plain_queued = queued_ms(lambda: FA.flash_attention_plain(*args), k=3)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_err = float((lib.transpose(1, 2) - FA.flash_attention(*args)).abs().max())
-    lms, lib_queued = queued_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), k=10)
+    lib_err, lms, lib_queued = _sdpa(FA, F, args)
+    bf = [t.to(torch.bfloat16).contiguous() for t in args]
+    bf_ms, bf_queued = queued_ms(lambda: FA.flash_attention(*bf), k=10)
+    if not bf_queued:
+        raise AssertionError("flash_attention bf16: the host fell behind")
+    _, bf_lms, bf_lib_queued = _sdpa(FA, F, bf)
     visible = S * (S + 1) // 2                    # causal (query, key) pairs
     ops = 4 * B * H * hd * visible                # QK^T and PV, 2 flops a MAC
     nbytes = 4 * B * S * hd * (2 * H + 2 * KV)    # q, k, v read, o written
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_b = nbytes / HBM_BYTES_PER_S
+    # the least time of float32-accurate work by either route: CUDA cores at
+    # the float32 rate, or 3xTF32 (three TF32 products per float32 one) on
+    # the tensor cores, the kernel's route
+    fp32_core = max(t_b, ops / FP32_OPS_PER_S) * 1e3
+    tf32x3 = max(t_b, 3 * ops / TF32_OPS_PER_S) * 1e3
     bf16_bound = max(nbytes / 2 / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-    return {"shape": [B, S, H, KV, hd], "max_abs_err": max(errs.values()),
+    return {"shape": [B, S, H, KV, hd],
+            "max_abs_err": max(e for n, e in errs.items() if "float32" in n),
             "errors": errs, "kernel_ms": kms, "plain_ms": pms,
             "plain_queued": plain_queued, "library_ms": lms,
             "library_queued": lib_queued, "library_max_abs_diff": lib_err,
-            "flops": ops, "bytes": nbytes, "bound_ms": max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bf16_bound_ms": bf16_bound, "achieved_tflop_s": ops / kms / 1e9}
+            "flops": ops, "bytes": nbytes, "bound_ms": min(fp32_core, tf32x3),
+            "bound_by": "bytes" if t_b * 1e3 >= min(fp32_core, tf32x3)
+            else "operations",
+            "bound_route": ("3xTF32 tensor cores" if tf32x3 <= fp32_core
+                            else "float32 CUDA cores"),
+            "fp32_cuda_core_bound_ms": fp32_core,
+            "achieved_tflop_s": ops / kms / 1e9,
+            "bf16_ms": bf_ms, "bf16_library_ms": bf_lms,
+            "bf16_library_queued": bf_lib_queued, "bf16_bound_ms": bf16_bound,
+            "bf16_max_abs_err": max(e for n, e in errs.items()
+                                    if "bfloat16" in n)}
+
+
+def _sdpa(FA, F, args) -> "tuple[float, float, bool]":
+    """``scaled_dot_product_attention`` on the flash kernel's inputs (KV
+    heads repeated beforehand, outside the timing): its largest difference
+    from the kernel and its queued device time."""
+    q, k, v = args
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    diff = float((lib.transpose(1, 2).float()
+                  - FA.flash_attention(*args).float()).abs().max())
+    ms, queued = queued_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        k=10)
+    return diff, ms, queued
 
 
 def _check_scan(args, SS) -> dict:
@@ -1295,7 +1311,7 @@ def _check_scan(args, SS) -> dict:
 
 def summary(state: dict) -> dict:
     ls = state["large_star"]
-    sweep, tile = ls["clique12"], ls["chain20"]
+    sweep = ls["clique12"]
     st = state["stats_kernels"]
     err = state["err"]
     return {"kernels": [
@@ -1307,15 +1323,19 @@ def summary(state: dict) -> dict:
          "ms": sweep["kernel_ms"], "plain_ms": sweep["plain_ms"],
          "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
          "library_ms": None},
+    ] + [
+        # one entry per tiled cell, at its largest tile; launches are the
+        # cell's own on the main path (the two sum to the kernel's count)
         {"name": "dp_layer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dp_layer.cu",
          "replaces": "src/repro/kernels/dp_layer.py:183",
-         "launches": state["main_launches"]["dp_layer"],
-         "max_abs_err": max(err["dp_layer"], tile["max_abs_err"]),
-         "ms": tile["kernel_ms"], "plain_ms": tile["plain_ms"],
-         "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
-         "library_ms": None},
-    ] + [
+         "cell": cell, "tile": ls[cell]["largest_tile"],
+         "launches": ls[cell]["launches"]["dp_layer"],
+         "max_abs_err": max(err["dp_layer"], ls[cell]["max_abs_err"]),
+         "ms": ls[cell]["kernel_ms"], "plain_ms": ls[cell]["plain_ms"],
+         "bound_ms": ls[cell]["bound_ms"], "bound_by": ls[cell]["bound_by"],
+         "library_ms": None}
+        for cell in ("chain20", "tree16")] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces,
@@ -1334,7 +1354,9 @@ def summary(state: dict) -> dict:
          "plain_ms": state["lm_kernels"][name]["plain_ms"],
          "bound_ms": state["lm_kernels"][name]["bound_ms"],
          "bound_by": state["lm_kernels"][name]["bound_by"],
-         "library_ms": state["lm_kernels"][name]["library_ms"]}
+         "library_ms": state["lm_kernels"][name]["library_ms"],
+         **{k: state["lm_kernels"][name][k] for k in LM_EXTRA_KEYS
+            if k in state["lm_kernels"][name]}}
         for name, replaces in LM_KERNELS]}
 
 

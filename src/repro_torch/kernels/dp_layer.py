@@ -15,9 +15,11 @@ hand-written CUDA kernel (``csrc/``) beside its plain PyTorch version:
 
 ``dp_layer``
     One dense ``(B, R, C)`` layer tile priced and reduced per column:
-    ``csrc/dp_layer.cu``, one thread per (member, column) walking the rows
-    in order.  The tiled fallback for schedules over the memory budget.
-    Replaces the reference's Pallas ``dp_layer``.
+    ``csrc/dp_layer.cu``, the rows split across threads and across blocks
+    of row chunks (``_chunk_rows`` sizes them to fill the card), a
+    lexicographic (cost, row) merge of the chunks' minima.  The tiled
+    fallback for schedules over the memory budget.  Replaces the
+    reference's Pallas ``dp_layer``.
 
 Both price in float64 with the operation association of
 ``CostModel.join_candidates_v`` (the library is built with ``--fmad=false``
@@ -49,7 +51,12 @@ _STRAT_EXCL, _STRAT_HASH, _STRAT_BIND = 2, 3, 4   # mirror join_order's codes
 _BIG_ROW = 2**31 - 1                              # "no valid pair in this column"
 
 register("dp_sweep", "dp_sweep.cu", "dp_sweep_layer", [P] * 12 + [I] * 5 + [D] * 4)
-register("dp_layer", "dp_layer.cu", "dp_layer_tile", [P] * 11 + [I] * 3 + [D] * 4)
+register("dp_layer", "dp_layer.cu", "dp_layer_tile", [P] * 14 + [I] * 4 + [D] * 4)
+
+_SMS = 132                # streaming multiprocessors of an H100
+_BLOCK_COLS = 32          # columns one dp_layer block covers at most
+_MAX_CHUNK_ROWS = 4096    # rows one dp_layer block walks at most
+_MIN_CHUNK_ROWS = 32
 
 
 # --------------------------------------------------------------------------
@@ -219,12 +226,29 @@ def dp_layer(cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid,
     best = torch.empty((B, C), dtype=torch.float64, device=dev)
     row = torch.empty((B, C), dtype=torch.int32, device=dev)
     bind = torch.empty((B, C), dtype=torch.uint8, device=dev)
+    chunk = _chunk_rows(B, R, C)
+    n_chunks = -(-R // chunk) if R else 1
+    # per-chunk minima, merged by a second kernel when R spans chunks
+    n_part = B * C * n_chunks if n_chunks > 1 else 0
+    part = [torch.empty(n_part, dtype=t, device=dev)
+            for t in (torch.float64, torch.int32, torch.uint8)]
     _launch("dp_layer", cost_a.data_ptr(), cost_b.data_ptr(),
             card_a.data_ptr(), n_src_b.data_ptr(), src_w_b.data_ptr(),
             bindable.data_ptr(), valid.data_ptr(), card_s.data_ptr(),
-            best.data_ptr(), row.data_ptr(), bind.data_ptr(), B, R, C,
-            iw, tw, rc, bb)
+            best.data_ptr(), row.data_ptr(), bind.data_ptr(),
+            *(p.data_ptr() for p in part), B, R, C, chunk, iw, tw, rc, bb)
     return best, row, bind
+
+
+def _chunk_rows(B: int, R: int, C: int) -> int:
+    """Rows one ``dp_layer`` block walks: at most ``_MAX_CHUNK_ROWS``, halved
+    (down to ``_MIN_CHUNK_ROWS``) until the grid of (member x column group,
+    row chunk) blocks covers the card's SMs at least twice."""
+    groups = B * -(-C // _BLOCK_COLS)
+    chunk = _MAX_CHUNK_ROWS
+    while chunk > _MIN_CHUNK_ROWS and groups * -(-R // chunk) < 2 * _SMS:
+        chunk //= 2
+    return max(chunk, -(-R // 65535))       # the grid's y extent
 
 
 def dp_layer_plain(cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid,

@@ -12,10 +12,13 @@ scores, softmax and accumulator are float32.
 
 The kernel, ``csrc/flash_attention.cu``, replaces the reference's Pallas
 ``flash_attention`` (and the ``jnp.repeat`` of KV heads in its
-``flash_attention_gqa`` wrapper): one block per (batch * head, 64-query
-tile) loops over 64-key tiles staged in shared memory, skipping tiles that
-are wholly masked.  It takes any ``S`` (the reference asserts ``S % 128 ==
-0``) and ``hd`` in ``HEAD_DIMS``.  It is bound by operations.
+``flash_attention_gqa`` wrapper): one block of 4 warps per (batch * head,
+query tile) loops over key tiles brought into a 2-stage shared-memory ring
+by asynchronous copies, skipping tiles that are wholly masked; both products
+run on the tensor cores (``mma.sync``: 3xTF32 for float32, bf16 for
+bfloat16) with the online softmax on the accumulators in registers.  It
+takes any ``S`` (the reference asserts ``S % 128 == 0``) and ``hd`` in
+``HEAD_DIMS``.  It is bound by operations.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.

@@ -81,7 +81,10 @@ def test_dp_sweep_kernel_equals_plain(dev, shape, n, B):
 
 
 @pytest.mark.parametrize("B,R,C", [(1, 2, 3), (4, 130, 7), (2, 3000, 1),
-                                   (3, 40, 300)])
+                                   (3, 40, 300),
+                                   (4, 419430, 1),     # chain20's tall tile
+                                   (8, 1022, 205),     # tree16's widest
+                                   (3, 1, 5), (2, 0, 4)])
 def test_dp_layer_kernel_equals_plain(dev, B, R, C):
     rng = np.random.default_rng(B * 1000 + R + C)
     shp = (B, R, C)
@@ -105,6 +108,48 @@ def test_dp_layer_kernel_equals_plain(dev, B, R, C):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,R,C", [(4, 20000, 1), (3, 1000, 40)])
+def test_dp_layer_kernel_first_minimum_across_chunks(dev, B, R, C):
+    """The first strict minimum lies in a later row chunk, equal costs
+    repeat in the chunks after it, an earlier equal row is invalid; member 1
+    is valid but all ``inf`` (``cost_a = inf``); with several columns,
+    column 1 is ``inf`` except in its last row."""
+    shp = (B, R, C)
+    rng = np.random.default_rng(R + C)
+    cost_a = np.full(shp, 50.0)
+    cost_b = np.full(shp, 50.0)
+    chunk = K._chunk_rows(B, R, C)
+    first = R // 4 + 17
+    assert first // chunk >= 1                     # not in the first chunk
+    ties = [first, first + 300, first + 3 * chunk + 5, R - 1]
+    early = R // 8
+    for r in ties + [early]:
+        cost_a[:, r, :] = cost_b[:, r, :] = 1.0
+    valid = np.ones((R, C), bool)
+    valid[early] = False
+    if C > 1:
+        cost_a[:, :, 1] = np.inf
+        cost_a[:, -1, 1] = 2.0
+    cost_a[1] = np.inf
+    bind = np.broadcast_to(rng.random((B, 1, C)) < 0.5, shp)
+    tile = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        cost_a, cost_b, np.full(shp, 10.0), np.ones(shp), np.ones(shp),
+        bind.astype(np.int8), valid.astype(np.int8),
+        rng.uniform(0, 80, (B, C)))]
+    for params in PARAMS:
+        got = K.dp_layer(*tile, params)
+        want = K.dp_layer_plain(*tile, params)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        best, row, is_bind = (t.cpu().numpy() for t in got)
+        assert (row[0, 0], row[2, 0]) == (first, first)
+        assert np.isinf(best[1]).all() and (row[1] == 2**31 - 1).all()
+        assert (is_bind[1] == 0).all()
+        if C > 1:
+            assert (row[[0, 2], 1] == R - 1).all()
 
 
 def test_wrappers_reject_mixed_devices(dev):
@@ -278,7 +323,12 @@ def _qkv(rng, B, S, H, KV, hd, dtype):
 @pytest.mark.parametrize("B,S,H,KV,hd", [(1, 200, 14, 2, 64),
                                          (2, 256, 4, 2, 128),
                                          (1, 129, 2, 1, 256),
-                                         (1, 3072, 14, 2, 64)])
+                                         (1, 3072, 14, 2, 64),
+                                         (1, 64, 4, 2, 64),    # one tile
+                                         (2, 63, 4, 1, 128),   # one under
+                                         (1, 63, 2, 1, 256),
+                                         (1, 64, 2, 2, 256),
+                                         (1, 2924, 14, 2, 64)])  # qwen2's longest
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0),
                                            (False, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

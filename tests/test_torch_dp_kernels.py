@@ -146,13 +146,52 @@ def _tile(B, R, C, seed):
     return cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid, card_s
 
 
-@pytest.mark.parametrize("B,R,C", [(1, 2, 3), (4, 130, 7), (3, 40, 60)])
+@pytest.mark.parametrize("B,R,C", [(1, 2, 3), (4, 130, 7), (3, 40, 60),
+                                   (4, 5000, 1)])     # tall, as chain20's
 def test_dp_layer_plain_matches_reference(ref_kernels, B, R, C):
+    tile = _tile(B, R, C, B * 1000 + R + C)
+    got = _plain_against_reference(ref_kernels, tile)
+    if C > 1:
+        assert np.isinf(got[0][:, -1]).all()
+        assert (got[1][:, -1] == 2**31 - 1).all()
+
+
+def test_dp_layer_plain_matches_reference_on_inf_costs(ref_kernels):
+    """Valid pairs whose cost is ``inf`` never win: member 1 is ``inf``
+    everywhere (``inf`` / ``2^31 - 1`` / 0, as the Pallas kernel's serial
+    strict minimum from ``inf`` gives), column 2 is ``inf`` except in its
+    last row, and the first minimum of column 0 follows ``inf`` rows.
+    ``dp_layer_ref`` returns the first valid row, not ``2^31 - 1``, for a
+    column whose valid costs are all ``inf`` (the DP never reads that row:
+    it folds only a strictly smaller cost), so its rows are compared where
+    the minimum is finite."""
+    B, R, C = 3, 300, 5
+    tile = list(_tile(B, R, C, 99))
+    cost_a = tile[0]
+    cost_a[:, :, 2] = np.inf
+    cost_a[:, -1, 2] = 3.0
+    cost_a[:, :200, 0] = np.inf
+    cost_a[1] = np.inf
+    tile[6] = np.ones((R, C), bool)
+    got = _plain_against_reference(ref_kernels, tuple(tile),
+                                   oracle_rows_where_finite=True)
+    assert np.isinf(got[0][1]).all() and (got[1][1] == 2**31 - 1).all()
+    assert (got[2][1] == 0).all()
+    assert (got[1][[0, 2], 2] == R - 1).all()
+    assert (got[1][[0, 2], 0] >= 200).all()
+
+
+def _plain_against_reference(ref_kernels, tile,
+                             oracle_rows_where_finite=False):
+    """``dp_layer`` on the CPU (its plain version) against the reference's
+    Pallas ``dp_layer`` (interpret mode) and ``dp_layer_ref``, exactly, for
+    both cost parameter sets (with ``oracle_rows_where_finite``, the
+    oracle's first rows only where the minimum is finite); returns the
+    port's outputs for the last."""
     import jax
     import jax.numpy as jnp
 
     ref_dp, ref = ref_kernels
-    tile = _tile(B, R, C, B * 1000 + R + C)
     cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid, card_s = tile
     args = [torch.from_numpy(x) for x in (cost_a, cost_b, card_a, n_src_b,
                                           src_w_b)]
@@ -165,12 +204,30 @@ def test_dp_layer_plain_matches_reference(ref_kernels, B, R, C):
         with jax.enable_x64(True):
             oracle = ref.dp_layer_ref(*(jnp.asarray(x) for x in tile), params)
         assert got[0].dtype == np.float64 and got[1].dtype == np.int32
-        for g_, w_, o_ in zip(got, want, oracle):
+        finite = np.isfinite(got[0])
+        for i, (g_, w_, o_) in enumerate(zip(got, want, oracle)):
             np.testing.assert_array_equal(g_, np.asarray(w_).astype(g_.dtype))
-            np.testing.assert_array_equal(g_, np.asarray(o_).astype(g_.dtype))
-        if C > 1:
-            assert np.isinf(got[0][:, -1]).all()
-            assert (got[1][:, -1] == 2**31 - 1).all()
+            o_ = np.asarray(o_).astype(g_.dtype)
+            if i == 1 and oracle_rows_where_finite:
+                g_, o_ = g_[finite], o_[finite]
+            np.testing.assert_array_equal(g_, o_)
+    return got
+
+
+@pytest.mark.parametrize("B,R,C", [(4, 419430, 1), (8, 1022, 205),
+                                   (1, 2, 3), (2, 0, 4), (1, 2**24, 1)])
+def test_dp_layer_row_chunks_fill_the_card(B, R, C):
+    """The kernel's row chunks: the main path's largest tiles (chain20's
+    tall one, tree16's widest) run at least two waves of blocks over the
+    card's 132 SMs, small tiles keep the 32-row floor, and no grid exceeds
+    its 65,535 row chunks."""
+    chunk = K._chunk_rows(B, R, C)
+    n_chunks = -(-R // chunk) if R else 1
+    assert chunk >= 32 and n_chunks <= 65535
+    if B * C * R >= 1_000_000:
+        assert B * -(-C // 32) * n_chunks >= 2 * 132
+    else:
+        assert chunk == 32
 
 
 def test_cost_twin_bitwise_equals_numpy_form():
