@@ -46,7 +46,8 @@ Each phase prints one JSON line:
                 of each again token by token (plain decode), tokens and
                 logits held to the prefill run's, and each LM kernel against
                 its plain version at the main path's full-width shapes, with
-                device times, bounds and a library yardstick.
+                device times, bounds and a library yardstick; the scan also
+                at the longest prompt.
 
 The main paths are ``fedbench``, ``large_star`` and ``stats`` running once,
 then ``lm``, each window with the launch counts set to 0 just before and
@@ -235,9 +236,12 @@ def phase_build(state: dict) -> None:
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.BUILD_LOG.items()}
+    spills = {k: [ln for ln in v if "spill" in ln
+                  and ln.count(" 0 bytes spill") < 2] for k, v in ptxas.items()}
     state["smi"] = nvidia_smi()
     emit("build", seconds=secs, built=built, nvidia_smi=state["smi"],
-         build_dir=str(build.build_dir()), ptxas=ptxas)
+         build_dir=str(build.build_dir()), ptxas=ptxas,
+         spills={k: v for k, v in spills.items() if v})
 
 
 def phase_kernels(state: dict) -> None:
@@ -920,6 +924,15 @@ SCAN_TOL = 2e-4                                    # tests/test_ssm_kernel.py:31
 SCAN_SEQ = 1024
 FLASH_WINDOW = 1024
 FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+# H100 SXM, 132 SMs at the 1.98 GHz boost clock: the FP32 pipe issues 128
+# instructions per SM per clock (FP32_OPS_PER_S counts a multiply-add as
+# two), the special-function units 16 exponentials (MUFU.EX2).  An
+# exponential can also run on the FP32 pipe as a polynomial: a rounding and
+# a degree-3 Horner step, 4 instructions (the exponent's shift is integer
+# work, on its own pipe).
+FP32_INSTR_PER_S = 128 * 132 * 1.98e9
+EXP_PER_S = 16 * 132 * 1.98e9
+EXP_POLY_INSTR = 4
 BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 LM_KERNELS = (("flash_attention", "src/repro/kernels/flash_attention.py:79"),
@@ -927,7 +940,8 @@ LM_KERNELS = (("flash_attention", "src/repro/kernels/flash_attention.py:79"),
 # keys of an LM kernel's row carried into the summary line beside the common
 # ones (flash: its route's bound, the float32 CUDA-core bound, bf16 timings)
 LM_EXTRA_KEYS = ("bound_route", "fp32_cuda_core_bound_ms", "bf16_ms",
-                 "bf16_library_ms", "bf16_bound_ms", "bf16_max_abs_err")
+                 "bf16_library_ms", "bf16_bound_ms", "bf16_max_abs_err",
+                 "longest_prompt")
 
 
 class _StageClock:
@@ -1176,7 +1190,12 @@ def check_lm(state: dict) -> None:
             rng = np.random.default_rng(LM_SEED + 1)
             seq = rng.integers(1, cfg.vocab, SCAN_SEQ).tolist()
             args = _layer0_scan_inputs(cfg, params, seq)
-            kernels["ssm_scan"] = _check_scan(args, SS)
+            row = _check_scan(args, SS)
+            full = _check_scan(_layer0_scan_inputs(cfg, params, longest), SS)
+            row["longest_prompt"] = {k: full[k] for k in (
+                "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_route")}
+            kernels["ssm_scan"] = row
         else:
             q, k, v = _layer0_flash_inputs(cfg, params, longest)
             kernels["flash_attention"] = _check_flash(q, k, v, FA, F)
@@ -1281,9 +1300,12 @@ def _sdpa(FA, F, args) -> "tuple[float, float, bool]":
 
 
 def _check_scan(args, SS) -> dict:
-    """The scan kernel against its plain version at falcon-mamba's
-    full-width prefill shape, final state included, with device times and
-    the compulsory-bytes bound (no single PyTorch call computes the scan)."""
+    """The scan kernel against its plain version on main-path inputs at
+    falcon-mamba's full width, final state included, with device times and
+    the bound: the larger of the compulsory bytes and the operations, with
+    the exponentials shared between the special-function units and the
+    FP32 pipe so that both finish together (no single PyTorch call computes
+    the scan)."""
     dt, bt, ct, x, a = args
     B, S, D = x.shape
     N = bt.shape[2]
@@ -1291,8 +1313,8 @@ def _check_scan(args, SS) -> dict:
     y0, h0 = SS.ssm_scan_plain(*args)
     err = max(float((y - y0).abs().max()), float((h - h0).abs().max()))
     if not (_allclose(y, y0, SCAN_TOL) and _allclose(h, h0, SCAN_TOL)):
-        raise AssertionError(f"ssm_scan differs from its plain version by "
-                             f"{err}")
+        raise AssertionError(f"ssm_scan differs from its plain version at "
+                             f"{(B, S, D, N)} by {err}")
     kms, queued = queued_ms(lambda: SS.ssm_scan(*args), k=20)
     if not queued:
         raise AssertionError("ssm_scan: the host fell behind the card")
@@ -1300,13 +1322,40 @@ def _check_scan(args, SS) -> dict:
     # dt, x read and y written (B, S, D); bt, ct read (B, S, N); a read and
     # the final state written (D, N) per row
     nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N)
-    ops = B * S * D * (6 * N + 1)        # dt*a, exp, 2 for the update, *c, + per lane; dt*x
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return {"shape": [B, S, D, N], "max_abs_err": err, "y_max_abs": float(
-        y0.abs().max()), "kernel_ms": kms, "plain_ms": pms,
-        "plain_queued": plain_queued, "library_ms": None, "bytes": nbytes,
-        "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
-        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    # FP32-pipe instructions per (b, t, d, n): dt * a, dtx * B, the update's
+    # multiply-add and y's, beside one exponential; per (b, t, d): dt * x
+    instr = B * S * D * (4 * N + 1)
+    exps = B * S * D * N
+    t_ops = _exp_shared_s(instr, exps)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": t_ops}
+    route = max(times, key=times.get)
+    return {"shape": [B, S, D, N], "max_abs_err": err,
+            "y_max_abs": float(y0.abs().max()), "kernel_ms": kms,
+            "plain_ms": pms, "plain_queued": plain_queued,
+            "library_ms": None, "bytes": nbytes, "fp32_instructions": instr,
+            "exps": exps, "bound_ms": times[route] * 1e3, "bound_by": route,
+            "bound_route": route if route == "bytes" else
+            "operations: exponentials on the special-function units and the "
+            "FP32 pipe",
+            "bounds_ms": {k: v * 1e3 for k, v in times.items()},
+            # the least time of a kernel that takes every exponential on the
+            # special-function units, as this one does; one that shares
+            # them with the FP32 pipe can go below it, so it is no bound
+            "exps_on_sfu_alone_ms": exps / EXP_PER_S * 1e3}
+
+
+def _exp_shared_s(instr: int, exps: int) -> float:
+    """The least time for ``instr`` FP32-pipe instructions and ``exps``
+    exponentials, each exponential on the special-function units or as an
+    ``EXP_POLY_INSTR``-instruction polynomial on the FP32 pipe: the share
+    on the FP32 pipe at which both pipes finish together."""
+    if not exps:
+        return instr / FP32_INSTR_PER_S
+    r = FP32_INSTR_PER_S / EXP_PER_S
+    share = min(1.0, max(0.0, (r * exps - instr) / ((r + EXP_POLY_INSTR)
+                                                      * exps)))
+    return max((instr + share * EXP_POLY_INSTR * exps) / FP32_INSTR_PER_S,
+               (1 - share) * exps / EXP_PER_S)
 
 
 def summary(state: dict) -> dict:

@@ -9,12 +9,16 @@ float32.
 
 The kernel, ``csrc/ssm_scan.cu``, replaces the reference's Pallas
 ``ssm_scan`` (a sequential grid of 64-step chunks with the carry in VMEM,
-``BLOCK_D`` channels per block): one thread per (b, d, n) loops over the
-whole sequence with its state lane in a register, and a 16-lane (or
-32-lane) shuffle sums ``y_t``.  It also writes ``h_last``, which the
-serving prefill needs for the decode cache and the TPU kernel leaves in its
-scratch.  Any ``S`` and ``D`` (the reference asserts ``S % 64 == 0`` and
-``D % 256 == 0``); ``N <= MAX_STATE``.  It is bound by bytes.
+``BLOCK_D`` channels per block).  A block covers 32 channels of one batch
+row over the whole sequence, lanes along the channels; its four warps
+split a channel's states (4 each, 8 above 16 states), each thread sums its
+share of ``y_t`` and the warps' partial sums meet in shared memory; chunks
+of 32 steps are staged through a ``cp.async`` ring.  It also writes
+``h_last``, which the serving prefill needs for the decode cache and the
+TPU kernel leaves in its scratch.  Any ``S`` and ``D`` (the reference
+asserts ``S % 64 == 0`` and ``D % 256 == 0``); ``N <= MAX_STATE``.  It is
+bound by its bytes, and nearly as much by its exponentials, one per (b, t,
+d, n) on the special-function units.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -25,7 +29,7 @@ from repro_torch.kernels.build import P, I, check, launch, register, route
 
 register("ssm_scan", "ssm_scan.cu", "ssm_scan", [P] * 7 + [I] * 4)
 
-MAX_STATE = 32                 # state width the kernel's lane groups take
+MAX_STATE = 32                 # state width the kernel takes
 
 
 def _check_args(dt, bt, ct, x, a):

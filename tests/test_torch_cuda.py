@@ -402,6 +402,54 @@ def test_ssm_scan_kernel_equals_plain(dev, B, S, D, N):
     torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)
 
 
+# the scan's chunk length (32 steps): sequences at and around one and two
+# chunks, channels that do not fill the 32-channel block, state widths on
+# both sides of the 16-state instance, and three rows that differ
+_L = 32
+SCAN_EDGES = [(1, 1, 40, 16), (1, _L - 1, 40, 16), (1, _L, 40, 16),
+              (1, _L + 1, 40, 16), (1, 2 * _L + 1, 40, 16),
+              (1, 2 * _L + 1, 70, 1), (1, 2 * _L + 1, 70, 17),
+              (1, 2 * _L + 1, 33, 32), (3, 3 * _L + 5, 45, 16)]
+
+
+def _scan_check(SS, args):
+    y0, h0 = SS.ssm_scan_plain(*args)
+    before = build.LAUNCHES["ssm_scan"]
+    y, h = SS.ssm_scan(*args)
+    assert build.LAUNCHES["ssm_scan"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, h0, rtol=2e-4, atol=2e-4)
+    return y, h
+
+
+@pytest.mark.parametrize("B,S,D,N", SCAN_EDGES)
+def test_ssm_scan_kernel_chunk_edges(dev, B, S, D, N):
+    from repro_torch.kernels import ssm_scan as SS
+
+    args = [t.to(dev) for t in _scan_inputs(np.random.default_rng(7 * S + N),
+                                             B, S, D, N)]
+    y, h = _scan_check(SS, args)
+    if B == 3:       # rows differ, and each row's scan is its own
+        assert not torch.allclose(y[0], y[1]) and not torch.allclose(h[1], h[2])
+
+
+@pytest.mark.parametrize("dt_mean,S", [(3.0, 4 * _L + 3), (0.003, 4 * _L + 3)])
+def test_ssm_scan_kernel_carry_across_chunks(dev, dt_mean, S):
+    """Strong decay (large dt: a state forgets within a few steps, so a
+    state carried into the next chunk without its decay shows) and weak
+    decay (the carry dominates every later chunk, so a dropped carry
+    shows), over five chunks, which wrap the three-slot staging ring."""
+    from repro_torch.kernels import ssm_scan as SS
+
+    rng = np.random.default_rng(int(dt_mean * 1000) + S)
+    B, D, N = 2, 64, 16
+    args = list(_scan_inputs(rng, B, S, D, N))
+    args[0] = torch.from_numpy(np.abs(rng.normal(dt_mean, dt_mean / 3,
+                                                 (B, S, D))).astype(np.float32))
+    _scan_check(SS, [t.to(dev) for t in args])
+
+
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
 def test_lm_prefill_and_serving_on_card_equal_cpu(dev, arch):
     """A narrow model (head width 64, so the flash kernel takes it) served

@@ -148,7 +148,8 @@ def test_ssm_plain_matches_pallas_kernel_and_oracle(B, S, D, N, chunk):
 
 
 @pytest.mark.parametrize("B,S,D,N", [(2, 50, 300, 16), (1, 1, 5, 8),
-                                     (3, 77, 33, 32)])
+                                     (3, 77, 33, 32), (1, 31, 40, 16),
+                                     (1, 65, 70, 17)])
 def test_ssm_plain_ragged_and_final_state(B, S, D, N):
     """Ragged shapes against the associative-scan oracle, and the final
     state against ``_scan_chunk``'s ``h[:, -1]`` (its ``y`` carries the
@@ -165,6 +166,25 @@ def test_ssm_plain_ragged_and_final_state(B, S, D, N):
                                          jnp.zeros((B, D, N), jnp.float32))
     _close(h_last, h_ref, 2e-4)
     _close(y + _t(skip) * _t(x), y_ref, 2e-4)
+
+
+@pytest.mark.parametrize("dt_mean", [3.0, 0.003])
+def test_ssm_plain_strong_and_weak_decay_match_oracle(dt_mean):
+    """Large dt (each state forgets within a few steps) and small dt (the
+    state carries across the whole sequence): ``y`` against the
+    associative-scan oracle and the final state against ``_scan_chunk``."""
+    rng = np.random.default_rng(int(dt_mean * 1000))
+    B, S, D, N = 2, 131, 64, 16
+    args = list(_scan_inputs(rng, B, S, D, N))
+    args[0] = np.abs(rng.normal(dt_mean, dt_mean / 3, (B, S, D))).astype(
+        np.float32)
+    y, h_last = ssm_scan(*(_t(v) for v in args))
+    jargs = [jnp.asarray(v) for v in args]
+    _close(y, ref_oracles.ssm_scan_ref(*jargs), 2e-4)
+    p = {"A_log": jnp.log(-jargs[4]), "D": jnp.zeros((D,), jnp.float32)}
+    _, h_ref = ref_mamba._scan_chunk(p, *jargs[:4],
+                                     jnp.zeros((B, D, N), jnp.float32))
+    _close(h_last, h_ref, 2e-4)
 
 
 def test_ssm_plain_rejects_bad_arguments():
