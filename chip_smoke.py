@@ -28,11 +28,15 @@ Each phase prints one JSON line:
                 and predicate bitmaps against the host CS statistics; then
                 ``compute_federated_cps_ops`` for every ordered source pair:
                 its signature probe against ``candidate_cs_pairs`` and its
-                federated CP counts, through ``intersect_count`` and through
-                ``match_counts``, against ``build_federated_stats``'s;
+                federated CP counts, through ``intersect_counts`` and
+                through ``match_counts_segments`` (one launch each per
+                source pair), against ``build_federated_stats``'s;
                 then, outside the counted window, each statistics kernel
-                against its plain version on its largest main-path input,
-                with device times of calls queued back to back;
+                against its plain version on its largest main-path input
+                (for the two list kernels the largest source pair's
+                launch, every pair's launch timed and summed, and one
+                single-list call), with device times of calls queued back
+                to back;
 ``lm``          LM serving at full published width, float32, TF32 off:
                 ``qwen2-0.5b`` (24 layers, 494 M params; 8 requests of
                 512-3072 prompt tokens, 32 new each, on 4 slots of a 4096
@@ -335,6 +339,20 @@ def _sorted_ids(rng, n: int, hi: int, unique: bool):
     return np.sort(rng.integers(0, hi, n)).astype(np.int32)
 
 
+def _segment_pack(lists):
+    """List pairs ``(a, aw, b, bw)`` as segments of shared base arrays, in
+    order: the four int32 bases and the int64 ``(a_off, a_len, b_off,
+    b_len)``."""
+    import numpy as np
+
+    cols = list(zip(*lists)) or [[], [], [], []]
+    base = [np.concatenate([np.asarray(x, np.int64) for x in c]).astype(
+        np.int32) if c else np.zeros(0, np.int32) for c in cols]
+    lens = [np.asarray([len(x) for x in cols[c]], np.int64) for c in (0, 2)]
+    offs = [np.cumsum(n) - n for n in lens]
+    return base, (offs[0], lens[0], offs[1], lens[1])
+
+
 def stats_kernel_cases(dev) -> dict:
     """The four statistics kernels against their plain versions on the card,
     exact: one case at or above the ``stats`` phase's largest extents (the
@@ -343,7 +361,9 @@ def stats_kernel_cases(dev) -> dict:
     subjects; a 1000 x 600 signature block of 512 words)
     and ragged ones: ties, duplicate build keys, unsorted and negative
     probes, empty lists, int32 wrap-around, ``seg = -1`` and out-of-plane
-    rows, a word count that is no multiple of the tile."""
+    rows, a word count that is no multiple of the tile; and the two list
+    kernels segmented: 301 list pairs in one launch, a build window above
+    the shared-memory budget beside staged ones, no segments."""
     import numpy as np
     import torch
 
@@ -381,6 +401,38 @@ def stats_kernel_cases(dev) -> dict:
                                          [SI.sorted_intersect_plain(ta, taw, tb, tbw)]))
         jc_err = max(jc_err, max_abs_err([JC.join_count(ta, tb, tbw)],
                                          [JC.join_count_plain(ta, tb, tbw)]))
+    # segmented: many short list pairs (unsorted, duplicate and negative
+    # keys, empty lists on either side, a wrapping pair) in one launch; a
+    # build window above the shared-memory budget (unsorted probes over a
+    # long build) beside staged ones; no segments at all
+    short = []
+    for k in range(300):
+        na, nb = (0 if k % 37 == 0 else int(rng.integers(1, 400)),
+                  0 if k % 41 == 0 else int(rng.integers(1, 400)))
+        short.append((rng.integers(-50, 500, na), rng.integers(-9, 9, na),
+                      np.sort(rng.integers(-50, 500, nb)),
+                      rng.integers(-9, 9, nb)))
+    short.append(lists[3])
+    wide = 4 * SI.SMEM_KEYS
+    batches = [short, [
+        (rng.integers(0, 100_000, 3000), rng.integers(1, 9, 3000),
+         _sorted_ids(rng, wide, 100_000, False), rng.integers(1, 9, wide)),
+        (_sorted_ids(rng, 20_000, 100_000, False), rng.integers(1, 9, 20_000),
+         _sorted_ids(rng, wide, 100_000, False), rng.integers(1, 9, wide))],
+        []]
+    for batch in batches:
+        base, bounds = _segment_pack(batch)
+        ta, taw, tb, tbw = up(*base)
+        a_off, a_len, b_off, b_len = bounds
+        si_err = max(si_err, max_abs_err(
+            [SI.sorted_intersect_segments(ta, taw, *bounds[:2], tb, tbw,
+                                          *bounds[2:])],
+            [SI.sorted_intersect_segments_plain(ta, taw, *bounds[:2], tb, tbw,
+                                                *bounds[2:])]))
+        jc_err = max(jc_err, max_abs_err(
+            [JC.join_count_segments(ta, *bounds[:2], tb, tbw, *bounds[2:])],
+            [JC.join_count_segments_plain(ta, *bounds[:2], tb, tbw,
+                                          *bounds[2:])]))
 
     n_big, n_subj = 3_600_000, 400_000
     seg_big = np.sort(rng.integers(0, n_subj, n_big))
@@ -410,8 +462,10 @@ def stats_kernel_cases(dev) -> dict:
         sp_err = max(sp_err, max_abs_err([SP.summary_probe(tx, ty)],
                                          [SP.summary_probe_plain(tx, ty)]))
     torch.cuda.synchronize()
-    out = {"sorted_intersect": {"cases": len(lists), "max_abs_err": si_err},
-           "join_count": {"cases": len(lists), "max_abs_err": jc_err},
+    out = {"sorted_intersect": {"cases": len(lists), "segmented_cases":
+                                len(batches), "max_abs_err": si_err},
+           "join_count": {"cases": len(lists), "segmented_cases":
+                          len(batches), "max_abs_err": jc_err},
            "seg_bitmap": {"cases": len(seg_cases), "max_abs_err": sb_err},
            "summary_probe": {"cases": len(sig_cases), "max_abs_err": sp_err}}
     for k, v in out.items():
@@ -781,40 +835,229 @@ def phase_stats(state: dict) -> None:
 
 
 def _largest_calls(stats, fed_cps, big_rows, dev) -> dict:
-    """The kernel arguments of each statistics kernel's largest main-path
-    call: the longest exact check (object list plus subject list) for
-    ``sorted_intersect`` and ``join_count``, the largest probe block for
-    ``summary_probe``, the source with the most rows for ``seg_bitmap``."""
+    """The kernel arguments of ``summary_probe``'s and ``seg_bitmap``'s
+    largest main-path calls: the largest probe block, the source with the
+    most rows."""
     import numpy as np
     import torch
 
-    def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
-
     def words(sig):               # uint64 words as int32, low half first
-        return up(np.ascontiguousarray(sig).view(np.int32))
+        return torch.from_numpy(np.ascontiguousarray(sig).view(np.int32)).to(dev)
 
-    check = block = None
+    block = None
     for (i, j), res in fed_cps.items():
-        eo, es = stats.exports[i], stats.exports[j]
-        for r, c2 in res.pairs:
-            n = (int(eo.obj_indptr[r + 1] - eo.obj_indptr[r]),
-                 int(es.subj_indptr[c2 + 1] - es.subj_indptr[c2]))
-            if min(n) and (check is None or sum(n) > check[0]):
-                check = (sum(n), i, j, r, c2)
         for orows, srows in res.blocks:
             if block is None or len(orows) + len(srows) > block[0]:
                 block = (len(orows) + len(srows), i, j, orows, srows)
-    _, i, j, r, c2 = check
-    ents, mult = stats.exports[i].objects_row(r)
-    subj = stats.exports[j].subjects_of(c2)
-    a, aw, b = up(ents), up(mult), up(subj)
-    ones = torch.ones(len(subj), dtype=torch.int32, device=dev)
     _, i, j, orows, srows = block
-    return {"sorted_intersect": (a, aw, b, ones), "join_count": (a, b, ones),
-            "summary_probe": (words(stats.summaries[i].obj_sig[orows]),
+    return {"summary_probe": (words(stats.summaries[i].obj_sig[orows]),
                               words(stats.summaries[j].subj_sig[srows])),
             "seg_bitmap": big_rows}
+
+
+def _pair_batches(stats, fed_cps, dev) -> list:
+    """Algorithm 1's exact checks as the main path launches them: for every
+    source pair with a check, the arguments of its one
+    ``sorted_intersect_segments`` call (objects weighted by their
+    multiplicities, subjects by 1; ``join_count_segments`` takes the same
+    lists without ``aw``), each source's export on the card once."""
+    import torch
+
+    from repro_torch.core.federation import exact_check_segments
+
+    up: dict = {}
+
+    def source(k):
+        if k not in up:
+            e = stats.exports[k]
+            up[k] = tuple(torch.from_numpy(x).to(dev) for x in
+                          (e.obj_ents, e.obj_mult, e.subj_ents))
+        return up[k]
+
+    batches = []
+    for (i, j), res in fed_cps.items():
+        _, a_off, a_len, b_off, b_len = exact_check_segments(
+            stats.exports[i], stats.exports[j], res.pairs)
+        if len(a_off):
+            ents, mult, _ = source(i)
+            subj = source(j)[2]
+            ones = torch.ones(subj.shape[0], dtype=torch.int32, device=dev)
+            batches.append(((i, j), (ents, mult, a_off, a_len, subj, ones,
+                                     b_off, b_len)))
+    return batches
+
+
+def _jc_args(si_args) -> tuple:
+    """``join_count_segments``'s arguments from ``sorted_intersect_segments``'s
+    (the same lists, no probe weights)."""
+    return (si_args[0], *si_args[2:])
+
+
+def _list_bytes(a, b) -> "tuple[int, int]":
+    """Compulsory bytes of one list pair: ``sorted_intersect`` reads both
+    key lists once, a weight only where its key has a match, and writes one
+    sum; ``join_count`` reads the probes and writes their counts, reads the
+    build keys once and a build weight only where its key is probed."""
+    import torch
+
+    ma, mb = (int(torch.isin(x, y).sum()) for x, y in ((a, b), (b, a)))
+    n, m = a.shape[0], b.shape[0]
+    return 4 * (n + m) + 4 * (ma + mb) + 4, 8 * n + 4 * m + 4 * mb
+
+
+def _batch_bytes(args) -> "tuple[int, int]":
+    """Compulsory bytes of one segmented launch, as ``_list_bytes`` counts
+    them, over the union of its segments: a key (or a weight) that several
+    segments share is read once.  Each ``join_count`` count and each
+    ``sorted_intersect`` sum is written once."""
+    import torch
+
+    a, _, a_off, a_len, b, _, b_off, b_len = args
+    seen = [torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+            for x in (a, b, a, b)]          # keys read, weights read
+    for o, n, p, m in zip(a_off.tolist(), a_len.tolist(), b_off.tolist(),
+                          b_len.tolist()):
+        x, y = a[o:o + n], b[p:p + m]
+        seen[0][o:o + n] = True
+        seen[1][p:p + m] = True
+        seen[2][o:o + n] |= torch.isin(x, y)
+        seen[3][p:p + m] |= torch.isin(y, x)
+    na, nb, ma, mb = (int(x.sum()) for x in seen)
+    return (4 * (na + nb + ma + mb) + 4 * len(a_off),
+            4 * (na + nb + mb) + 4 * int(a_len.sum()))
+
+
+def _time_kernel(name, kernel, plain, args) -> dict:
+    """One call of ``kernel`` against ``plain`` (exact), with device times
+    of both (``queued_ms``) and the wrapper's time per call."""
+    err = max_abs_err([kernel(*args)], [plain(*args)])
+    if err != 0.0:
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"its largest main-path input: {err}")
+    kms, queued = queued_ms(lambda: kernel(*args))
+    if not queued:
+        raise AssertionError(f"{name}: the host fell behind the card, so "
+                             f"its time would hold host time")
+    pms, plain_queued = queued_ms(lambda: plain(*args))
+    return {"max_abs_err": err, "kernel_ms": kms,
+            "call_ms": cuda_ms(lambda: kernel(*args), reps=20),
+            "plain_ms": pms, "plain_queued": plain_queued, "library_ms": None}
+
+
+def _kernel_alone_ms(name: str, args) -> float:
+    """Device time (``queued_ms``) of ``name``'s segmented launch on the
+    wrapper's arguments ``args`` with its table uploaded once beforehand:
+    the kernel without the table copy that each wrapper call makes, its
+    result held to the wrapper's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import join_count as JC
+    from repro_torch.kernels import sorted_intersect as SI
+
+    dev = torch.device(DEVICE)
+    if name == "sorted_intersect":
+        a, aw, a_off, a_len, b, bw, b_off, b_len = args
+        table, n_tiles = SI.segment_table(a_off, a_len, b_off, b_len,
+                                          (a_len > 0) & (b_len > 0), dev)
+        ptrs = (a.data_ptr(), aw.data_ptr(), b.data_ptr(), bw.data_ptr())
+        out = torch.zeros(len(a_off), dtype=torch.int32, device=dev)
+        want = SI.sorted_intersect_segments(*args)
+    else:
+        a, a_off, a_len, b, bw, b_off, b_len = args
+        table, n_tiles = SI.segment_table(a_off, a_len, b_off, b_len,
+                                          a_len > 0, dev,
+                                          out_off=np.cumsum(a_len) - a_len)
+        ptrs = (a.data_ptr(), b.data_ptr(), bw.data_ptr())
+        out = torch.empty(int(a_len.sum()), dtype=torch.int32, device=dev)
+        want = JC.join_count_segments(*args)
+
+    def run():
+        build.launch(name, *ptrs, table.data_ptr(), len(a_off), n_tiles, 0,
+                     0, out.data_ptr())
+
+    run()                         # sorted_intersect's sums start from zero
+    if not torch.equal(out, want):
+        raise AssertionError(f"{name}: the launch alone differs from the "
+                             f"wrapper's result")
+    ms, queued = queued_ms(run)
+    if not queued:
+        raise AssertionError(f"{name}: the host fell behind the card")
+    return ms
+
+
+def check_exact_checks(stats, fed_cps) -> dict:
+    """Rows 5-6 (``sorted_intersect``, ``join_count``) as the main path
+    runs them, one segmented launch per source pair: the largest pair's
+    launch (most ids) against its segmented plain version, timed with and
+    without the wrapper's table copy, with the compulsory bytes of the
+    whole batch; every pair's launch timed, summed
+    beside the bytes bound of all lists; and one single-list call (K = 1)
+    at the longest exact check, timed as one launch per list was."""
+    import torch
+
+    from repro_torch.kernels import join_count as JC
+    from repro_torch.kernels import sorted_intersect as SI
+
+    batches = _pair_batches(stats, fed_cps, torch.device(DEVICE))
+    rows = {"sorted_intersect": {}, "join_count": {}}
+    total = {k: {"kernel_ms": 0.0, "bound_ms": 0.0} for k in rows}
+    largest = longest = None
+    for pair, args in batches:
+        si_bytes, jc_bytes = _batch_bytes(args)
+        ids = int(args[3].sum() + args[7].sum())
+        for name, fn, a, nbytes in (
+                ("sorted_intersect", SI.sorted_intersect_segments, args,
+                 si_bytes),
+                ("join_count", JC.join_count_segments, _jc_args(args),
+                 jc_bytes)):
+            ms, queued = queued_ms(lambda: fn(*a))
+            if not queued:
+                raise AssertionError(f"{name}: the host fell behind the card "
+                                     f"at pair {pair}")
+            total[name]["kernel_ms"] += ms
+            total[name]["bound_ms"] += _bytes_bound(nbytes)[0]
+        if largest is None or ids > largest[0]:
+            largest = (ids, pair, args, si_bytes, jc_bytes)
+        k = int((args[3] + args[7]).argmax())
+        n = int(args[3][k] + args[7][k])
+        if longest is None or n > longest[0]:
+            longest = (n, args, k)
+    ids, pair, args, si_bytes, jc_bytes = largest
+    for name, kernel, plain, a, nbytes in (
+            ("sorted_intersect", SI.sorted_intersect_segments,
+             SI.sorted_intersect_segments_plain, args, si_bytes),
+            ("join_count", JC.join_count_segments,
+             JC.join_count_segments_plain, _jc_args(args), jc_bytes)):
+        row = _time_kernel(name, kernel, plain, a)
+        row.update(pair=list(pair), segments=len(args[2]),
+                   ids=[int(args[3].sum()), int(args[7].sum())],
+                   kernel_alone_ms=_kernel_alone_ms(name, a))
+        row["bound_ms"], row["bound_by"] = _bytes_bound(nbytes)
+        row["all_pairs"] = {"launches": len(batches),
+                            "segments": sum(len(b[1][2]) for b in batches),
+                            **total[name]}
+        rows[name] = row
+    # one list pair alone (K = 1): the longest exact check
+    _, (e, m, a_off, a_len, s, ones, b_off, b_len), k = longest
+    a = e[a_off[k]:a_off[k] + a_len[k]]
+    aw = m[a_off[k]:a_off[k] + a_len[k]]
+    b = s[b_off[k]:b_off[k] + b_len[k]]
+    w = ones[:b.shape[0]]
+    si_bytes, jc_bytes = _list_bytes(a, b)
+    for name, kernel, plain, a1, nbytes in (
+            ("sorted_intersect", SI.sorted_intersect,
+             SI.sorted_intersect_plain, (a, aw, b, w), si_bytes),
+            ("join_count", JC.join_count, JC.join_count_plain, (a, b, w),
+             jc_bytes)):
+        one = _time_kernel(name, kernel, plain, a1)
+        one.update(shape=[a.shape[0], b.shape[0]],
+                   bound_ms=_bytes_bound(nbytes)[0])
+        rows[name]["single_list"] = one
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        one["max_abs_err"])
+    return rows
 
 
 def _bytes_bound(nbytes: int) -> "tuple[float, str]":
@@ -826,13 +1069,14 @@ def check_stats(state: dict) -> None:
     main-path input, with device times of both (``queued_ms``), the
     wrapper's time per call, the compulsory-bytes bound of that input, and
     for ``seg_bitmap`` the one PyTorch call that computes the same counts
-    (``torch.bincount``), timed as a yardstick only."""
+    (``torch.bincount``), timed as a yardstick only.  The list kernels'
+    largest input is a source pair's segmented launch
+    (``check_exact_checks``)."""
     import torch
 
-    from repro_torch.core.federation import compute_federated_cps
-    from repro_torch.kernels import join_count as JC
+    from repro_torch.core.federation import (compute_federated_cps,
+                                             compute_federated_cps_ops)
     from repro_torch.kernels import seg_bitmap as SB
-    from repro_torch.kernels import sorted_intersect as SI
     from repro_torch.kernels import summary_probe as SP
 
     stats, fed_cps, big_rows = state.pop("stats_run")
@@ -843,43 +1087,22 @@ def check_stats(state: dict) -> None:
         compute_federated_cps(stats.exports[i], stats.exports[j],
                               stats.summaries[i], stats.summaries[j])
     state["stats"]["host_algorithm1_s"] = time.perf_counter() - t0
+    # the card's Algorithm 1 again: the main path's call is the process's
+    # first use of several PyTorch operations and kernels, whose modules
+    # load at first launch; a long-lived statistics service pays that once
+    t0 = time.perf_counter()
+    warm = compute_federated_cps_ops(stats.exports, stats.summaries,
+                                     device=DEVICE)
+    state["stats"]["algorithm1_warm_s"] = time.perf_counter() - t0
+    _algorithm1_checks(stats, warm)
     keep = _largest_calls(stats, fed_cps, big_rows, torch.device(DEVICE))
-    rows = {}
+    rows = check_exact_checks(stats, fed_cps)
     for name, kernel, plain in (
-            ("sorted_intersect", SI.sorted_intersect, SI.sorted_intersect_plain),
-            ("join_count", JC.join_count, JC.join_count_plain),
             ("seg_bitmap", SB.seg_bitmap, SB.seg_bitmap_plain),
             ("summary_probe", SP.summary_probe, SP.summary_probe_plain)):
         args = keep[name]
-        err = max_abs_err([kernel(*args)], [plain(*args)])
-        if err != 0.0:
-            raise AssertionError(f"{name} differs from its plain version on "
-                                 f"its largest main-path input: {err}")
-        kms, queued = queued_ms(lambda: kernel(*args))
-        if not queued:
-            raise AssertionError(f"{name}: the host fell behind the card, so "
-                                 f"its time would hold host time")
-        pms, plain_queued = queued_ms(lambda: plain(*args))
-        row = {"max_abs_err": err, "kernel_ms": kms,
-               "call_ms": cuda_ms(lambda: kernel(*args), reps=20),
-               "plain_ms": pms, "plain_queued": plain_queued,
-               "library_ms": None}
-        if name == "sorted_intersect":
-            # keys read once; a weight only where its key has a match
-            a, _, b, _ = args
-            ma, mb = (int(torch.isin(x, y).sum()) for x, y in ((a, b), (b, a)))
-            row.update(shape=[a.shape[0], b.shape[0]], matches=[ma, mb])
-            row["bound_ms"], row["bound_by"] = _bytes_bound(
-                4 * (a.shape[0] + b.shape[0]) + 4 * (ma + mb) + 4)
-        elif name == "join_count":
-            # probe keys and outputs once, build keys once, a build weight
-            # only where its key is probed
-            probe, build, _ = args
-            mb = int(torch.isin(build, probe).sum())
-            row.update(shape=[probe.shape[0], build.shape[0]], matches=mb)
-            row["bound_ms"], row["bound_by"] = _bytes_bound(
-                8 * probe.shape[0] + 4 * build.shape[0] + 4 * mb)
-        elif name == "seg_bitmap":
+        row = _time_kernel(name, kernel, plain, args)
+        if name == "seg_bitmap":
             # every segment read, a bucket only where its row is in the
             # plane, the (n_seg, 128) float32 plane written once
             seg, bucket, n_seg = args
@@ -1392,7 +1615,13 @@ def summary(state: dict) -> dict:
          "max_abs_err": max(err[name], st[name]["max_abs_err"]),
          "ms": st[name]["kernel_ms"], "plain_ms": st[name]["plain_ms"],
          "bound_ms": st[name]["bound_ms"], "bound_by": st[name]["bound_by"],
-         "library_ms": st[name]["library_ms"]}
+         "library_ms": st[name]["library_ms"],
+         **({"segments": st[name]["segments"],
+             "kernel_alone_ms": st[name]["kernel_alone_ms"],
+             "single_list_ms": st[name]["single_list"]["kernel_ms"],
+             "all_pairs_ms": st[name]["all_pairs"]["kernel_ms"],
+             "all_pairs_bound_ms": st[name]["all_pairs"]["bound_ms"]}
+            if "all_pairs" in st[name] else {})}
         for name, replaces in STATS_KERNELS] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -249,6 +249,44 @@ def _cp_rows(rows: list, src1: int, src2: int) -> CPStats:
         src1=src1, src2=src2)
 
 
+def exact_check_segments(obj_export: LinkExport, subj_export: LinkExport,
+                         pairs: list) -> tuple:
+    """Algorithm 1's exact checks among ``pairs`` (objects row, subject CS),
+    as segments of the two exports: ``(checks, a_off, a_len, b_off,
+    b_len)``, ``checks`` the ``(K, 2)`` pairs whose objects row and subject
+    list are both non-empty, in ``pairs``' order, with the offsets and
+    lengths of those lists in ``obj_ents`` and ``subj_ents``."""
+    p = np.asarray(pairs, np.int64).reshape(-1, 2)
+    a_off = obj_export.obj_indptr[p[:, 0]].astype(np.int64)
+    a_len = obj_export.obj_indptr[p[:, 0] + 1] - a_off
+    b_off = subj_export.subj_indptr[p[:, 1]].astype(np.int64)
+    b_len = subj_export.subj_indptr[p[:, 1] + 1] - b_off
+    keep = (a_len > 0) & (b_len > 0)
+    return p[keep], a_off[keep], a_len[keep], b_off[keep], b_len[keep]
+
+
+def _segment_sums(w, counts, off, length, dev):
+    """int64 ``sum of w[off[k] + i] * counts[c_k + i]`` over i < length[k]
+    per segment k, ``counts`` concatenated in segment order (segment k's
+    first at ``c_k``): a prefix sum differenced at the segment ends, on
+    ``dev``.  Exact, so its order does not matter."""
+    import torch
+
+    from repro_torch.kernels.build import upload
+
+    K, total = len(off), int(length.sum())
+    table = upload(np.concatenate([off - (np.cumsum(length) - length),
+                                   length]), dev)
+    shift, n = table[:K], table[K:]
+    pos = torch.arange(total, device=dev) + torch.repeat_interleave(
+        shift, n, output_size=total)
+    csum = torch.zeros(total + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(w[pos].to(torch.int64) * counts.to(torch.int64), 0,
+                 out=csum[1:])
+    ends = torch.cumsum(n, 0)
+    return csum[ends] - csum[ends - n]
+
+
 def compute_federated_cps_ops(
     exports: list[LinkExport],
     summaries: list[EntitySummary],
@@ -256,13 +294,15 @@ def compute_federated_cps_ops(
 ) -> dict[tuple[int, int], OpsFedCPResult]:
     """Algorithm 1 for every ordered pair of sources on the statistics
     kernels (``repro_torch.kernels.ops``) on ``device``: the signature probe
-    per shared authority (``signature_overlap``), then every candidate
-    (objects row, subject CS) pair through ``intersect_count`` (objects
-    weighted by their link multiplicities, subjects by 1) and
-    ``match_counts``.  The pairs, their order and the counts are those of
-    ``compute_federated_cps`` with summaries; each source's export goes to
-    ``device`` once.  ``build_federated_stats`` runs the host form, as the
-    reference does."""
+    per shared authority (``signature_overlap``), then the candidate
+    (objects row, subject CS) pairs' exact checks, all of a source pair in
+    one ``intersect_counts`` launch (objects weighted by their link
+    multiplicities, subjects by 1) and one ``match_counts_segments`` launch,
+    whose per-check sums of ``multiplicity * matches`` are formed on
+    ``device``; both come back in one copy per source pair.  The pairs,
+    their order and the counts are those of ``compute_federated_cps`` with
+    summaries; each source's export goes to ``device`` once.
+    ``build_federated_stats`` runs the host form, as the reference does."""
     import torch
 
     from repro_torch.kernels import ops
@@ -270,9 +310,8 @@ def compute_federated_cps_ops(
     dev = torch.device(device)
     up = [tuple(torch.from_numpy(x).to(dev)
                 for x in (e.obj_ents, e.obj_mult, e.subj_ents)) for e in exports]
-    longest = max((int(np.diff(e.subj_indptr).max(initial=0)) for e in exports),
-                  default=0)
-    ones = torch.ones(longest, dtype=torch.int32, device=dev)
+    ones = torch.ones(max((len(e.subj_ents) for e in exports), default=0),
+                      dtype=torch.int32, device=dev)
     out: dict[tuple[int, int], OpsFedCPResult] = {}
     for i, eo in enumerate(exports):
         for j, es in enumerate(exports):
@@ -281,27 +320,31 @@ def compute_federated_cps_ops(
             cand, blocks = _probe_ops(summaries[i], summaries[j], dev)
             pairs = _export_pairs(eo, summaries[i], summaries[j], cand)
             ents_d, mult_d, subj_d = up[i][0], up[i][1], up[j][2]
+            ones_d = ones[:len(es.subj_ents)]
+            checks, a_off, a_len, b_off, b_len = exact_check_segments(
+                eo, es, pairs)
             by_intersect: list = []
             by_match: list = []
-            checked = 0
-            for r, c2 in pairs:
-                lo, hi = int(eo.obj_indptr[r]), int(eo.obj_indptr[r + 1])
-                slo, shi = int(es.subj_indptr[c2]), int(es.subj_indptr[c2 + 1])
-                if hi == lo or shi == slo:
-                    continue
-                checked += 1
-                e, sb, w = ents_d[lo:hi], subj_d[slo:shi], ones[:shi - slo]
-                key = (int(eo.obj_pred[r]), int(eo.obj_cs[r]), c2)
-                cnt = ops.intersect_count(e, mult_d[lo:hi], sb, w, device=dev)
-                if cnt:
-                    by_intersect.append((*key, cnt))
-                mc = ops.match_counts(e, sb, w, device=dev)
-                m = int((eo.obj_mult[lo:hi].astype(np.int64) * mc).sum())
-                if m:
-                    by_match.append((*key, m))
+            if len(checks):
+                cnt = ops.intersect_counts(ents_d, mult_d, a_off, a_len,
+                                           subj_d, ones_d, b_off, b_len,
+                                           device=dev)
+                mc = ops.match_counts_segments(ents_d, a_off, a_len, subj_d,
+                                               ones_d, b_off, b_len,
+                                               device=dev)
+                m = _segment_sums(mult_d, mc, a_off, a_len, dev)
+                host = torch.cat([cnt.to(torch.int64), m]).cpu().numpy()
+                for (r, c2), c, s in zip(checks.tolist(),
+                                         host[:len(checks)].tolist(),
+                                         host[len(checks):].tolist()):
+                    key = (int(eo.obj_pred[r]), int(eo.obj_cs[r]), c2)
+                    if c:
+                        by_intersect.append((*key, c))
+                    if s:
+                        by_match.append((*key, s))
             out[(i, j)] = OpsFedCPResult(
                 cps=_cp_rows(by_intersect, eo.src, es.src),
-                n_checked_pairs=checked,
+                n_checked_pairs=len(checks),
                 n_possible_pairs=len(eo.obj_cs) * es.n_cs,
                 match_cps=_cp_rows(by_match, eo.src, es.src),
                 candidates=cand, blocks=blocks, pairs=pairs)

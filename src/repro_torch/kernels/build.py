@@ -13,7 +13,8 @@ bit-identity with the host DP, and the integer kernels do not care, so one
 flag set serves all.
 
 ``LAUNCHES`` counts kernel launches per kernel (``launch`` adds one per
-launch; plain-version calls do not count).
+launch; plain-version calls do not count).  ``upload`` hands a kernel a
+host-built table without waiting for the card.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double   # argument types
+# argument types
+P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 
 SOURCES: dict = {}        # kernel name -> source file under csrc/
 _SIGNATURES: dict = {}    # kernel name -> (C symbol, ctypes argtypes)
@@ -57,7 +59,9 @@ def build_dir() -> Path:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
+    # the key covers the shared headers too, which a source may include
+    src = b"".join(p.read_bytes() for p in
+                   [_CSRC / SOURCES[name], *sorted(_CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{key}.so"
 
@@ -125,6 +129,18 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def upload(x, device):
+    """The numpy array ``x`` as a tensor on ``device``.  On a card it goes
+    through pinned memory without waiting for the card, so a wrapper can
+    hand a kernel a host-built table and stay queued ahead of it."""
+    import torch
+
+    t = torch.from_numpy(x)
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def check(name: str, t, dtype, shape: tuple, device) -> None:

@@ -1,54 +1,60 @@
-// Per-probe weighted match counts against a sorted build side, for Hopper
-// (sm_90a).
+// Per-probe weighted match counts of K (probe, sorted build) list pairs in
+// one launch, for Hopper (sm_90a).
 //
 // Replaces repro/kernels/join_count.py::join_count (the Pallas kernel
 // _kernel, pallas_call in join_count): out[i] = the int32 sum of build_w[j]
-// over all j with build[j] == probe[i].  The TPU kernel tests every
-// (256 x 256) tile of (probe, build) pairs for equality, O(NP * NB).
+// over all j with build[j] == probe[i], here for every segment of a launch
+// at once, the segments' outputs concatenated (segment k's first probe at
+// out_off[k]).  The TPU kernel tests every (256 x 256) tile of (probe, build)
+// pairs of one list pair for equality, O(NP * NB), one call per list pair.
 //
-// Work split: one thread per probe binary-searches the lower bound of
-// probe[i] in the sorted build and walks forward while the key is equal,
-// summing build_w[j].  That equals the all-pairs sum for any sorted build,
-// duplicate keys included.  The sum is unsigned 32-bit, so it wraps as the
-// reference's int32 sum does.
+// Work split (segments.cuh): one block per tile of 512 probes of one
+// segment; each probe binary-searches its segment's build window, staged in
+// shared memory when it fits, and walks its run of equal keys, summing
+// build_w[j] (duplicate build keys included).  The sum is unsigned 32-bit,
+// so it wraps as the reference's int32 sum does.
 //
-// What bounds it: bytes.  The probe is read once and the output written once
-// (8 bytes a probe); each search makes about log2(NB) reads of a build that
-// stays in the 50 MB L2 at Algorithm 1's list lengths.
+// What bounds it: the probes.  Each is read and its count written once
+// per segment it lies in (8 bytes a probe), a build weight read only where
+// its key is probed.  One launch per source pair instead of one per list
+// pair removes Algorithm 1's per-launch floors.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "segments.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace segments;
 
-__global__ void join_count_kernel(const int32_t* __restrict__ probe,
-                                  const int32_t* __restrict__ build,
-                                  const int32_t* __restrict__ build_w,
-                                  int32_t* __restrict__ out, int np, int nb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= np) return;
-  const int32_t v = probe[i];
-  int lo = 0, hi = nb;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (build[mid] < v) lo = mid + 1; else hi = mid;
+__global__ void __launch_bounds__(kThreads)
+join_count_kernel(const int32_t* __restrict__ probe,
+                  const int32_t* __restrict__ build,
+                  const int32_t* __restrict__ build_w,
+                  const int64_t* __restrict__ table, int64_t K, int64_t T,
+                  int64_t na, int64_t nb, int32_t* __restrict__ out) {
+  const Tile tl = load_tile(table, K, T, 5, na, nb);
+  unsigned w[kPerThread];
+  match_weights(probe + tl.a_off, tl.n, build + tl.b_off, build_w + tl.b_off,
+                tl.nb, w);
+  int32_t* o = out + (table ? table[4 * K + tl.seg] : 0) + tl.start;
+#pragma unroll
+  for (int e = 0; e < kPerThread; ++e) {
+    const int i = threadIdx.x + e * kThreads;
+    if (i < tl.n) o[i] = (int32_t)w[e];
   }
-  unsigned int w = 0;
-  for (int j = lo; j < nb && build[j] == v; ++j) w += (unsigned int)build_w[j];
-  out[i] = (int32_t)w;
 }
 
 }  // namespace
 
+// table: int64 rows a_off, a_len, b_off, b_len, out_off (K each), then the
+// tiles' segment and start (T each); or null for the one list pair
+// probe[0, na) against build[0, nb) (K = 1; T follows).  Returns a
+// cudaError_t.
 extern "C" int join_count(const void* probe, const void* build,
-                          const void* build_w, void* out, int np, int nb,
+                          const void* build_w, const void* table, int64_t K,
+                          int64_t T, int64_t na, int64_t nb, void* out,
                           void* stream) {
-  if (np == 0) return 0;
-  const int blocks = (np + kThreads - 1) / kThreads;
-  join_count_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)probe, (const int32_t*)build, (const int32_t*)build_w,
-      (int32_t*)out, np, nb);
-  return (int)cudaGetLastError();
+  return segments::launch(join_count_kernel, table, K, T, na, nb, stream,
+                          (const int32_t*)probe, (const int32_t*)build,
+                          (const int32_t*)build_w, (const int64_t*)table, K, T,
+                          na, nb, (int32_t*)out);
 }

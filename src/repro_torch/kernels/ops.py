@@ -5,6 +5,10 @@ counterpart of the reference's ``kernels/ops.py`` statistics wrappers.  Each tak
 when already on ``device``), moves them to ``device`` as int32, runs the
 kernel wrapper, and returns host values.  ``device`` is ``"cuda"`` unless
 the caller asks for the CPU, where the wrappers run their plain versions.
+``intersect_counts`` and ``match_counts_segments`` are ``intersect_count``
+and ``match_counts`` over K segments of shared base arrays in one launch
+(a batch axis written out); their results stay on ``device``, so that a
+caller brings several back in one copy.
 
 What the reference needed only for its TPU blocks is gone: the block
 padding (``_pad_to``, ``_pad2`` and the ``-1``/``-2`` sentinels), since the
@@ -19,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.join_count import join_count
+from repro_torch.kernels.join_count import join_count, join_count_segments
 from repro_torch.kernels.seg_bitmap import seg_bitmap
-from repro_torch.kernels.sorted_intersect import sorted_intersect
+from repro_torch.kernels.sorted_intersect import (sorted_intersect,
+                                                  sorted_intersect_segments)
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.summary_probe import summary_probe
 
@@ -44,6 +49,17 @@ def intersect_count(a, aw, b, bw, device=DEFAULT_DEVICE) -> int:
                                 _i32(b, device), _i32(bw, device)))
 
 
+def intersect_counts(a, aw, a_off, a_len, b, bw, b_off, b_len,
+                     device=DEFAULT_DEVICE):
+    """``(K,)`` int32 tensor on ``device``: ``intersect_count`` of each
+    segment k, ``a[a_off[k]:][:a_len[k]]`` (``aw`` alike) against the sorted
+    ``b[b_off[k]:][:b_len[k]]`` (``bw`` alike), in one launch.  Offsets and
+    lengths are host integer arrays."""
+    return sorted_intersect_segments(_i32(a, device), _i32(aw, device), a_off,
+                                     a_len, _i32(b, device), _i32(bw, device),
+                                     b_off, b_len)
+
+
 def predicate_bitmaps(seg, bucket, n_seg: int, device=DEFAULT_DEVICE) -> np.ndarray:
     """``(n_seg, 128)`` bool predicate-presence bitmaps of the rows
     ``(seg, bucket)``; rows with ``seg < 0`` are padding."""
@@ -56,6 +72,17 @@ def match_counts(probe, build, build_w, device=DEFAULT_DEVICE) -> np.ndarray:
     ``build`` weighted by ``build_w``."""
     return join_count(_i32(probe, device), _i32(build, device),
                       _i32(build_w, device)).cpu().numpy()
+
+
+def match_counts_segments(probe, p_off, p_len, build, build_w, b_off, b_len,
+                          device=DEFAULT_DEVICE):
+    """``(sum(p_len),)`` int32 tensor on ``device``: ``match_counts`` of
+    each probe segment against its sorted build segment, concatenated in
+    segment order, in one launch.  Offsets and lengths are host integer
+    arrays."""
+    return join_count_segments(_i32(probe, device), p_off, p_len,
+                               _i32(build, device), _i32(build_w, device),
+                               b_off, b_len)
 
 
 def signature_overlap(a_sig, b_sig, device=DEFAULT_DEVICE) -> np.ndarray:

@@ -60,7 +60,9 @@ def ssm_scan(dt, bt, ct, x, a):
         return ssm_scan_plain(dt, bt, ct, x, a)
     if N > MAX_STATE:
         raise ValueError(f"ssm_scan: state width {N} above {MAX_STATE}")
-    y = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    # at N = 0 the kernel does not run and y is the empty sum, zeros
+    y = (torch.empty if N else torch.zeros)((B, S, D), dtype=torch.float32,
+                                             device=dev)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=dev)
     if h_last.numel():
         launch("ssm_scan", dt.data_ptr(), bt.data_ptr(), ct.data_ptr(),

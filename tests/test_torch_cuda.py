@@ -233,6 +233,111 @@ def test_sorted_intersect_and_join_count_kernels_equal_plain(dev, na, nb, hi):
     assert torch.equal(got_c, want_c)
 
 
+def _segment_lists(case: str, rng):
+    """The list pairs ``(a, aw, b, bw)`` of one segmented case; ``b`` sorted
+    ascending, ``a`` in any order."""
+    def pair(na, nb, hi, sort_a=True, w=2**20):
+        a = rng.integers(-hi // 10, hi, na)
+        b = np.sort(rng.integers(-hi // 10, hi, nb))         # duplicate keys
+        return (np.sort(a) if sort_a else a, rng.integers(-50, w, na), b,
+                rng.integers(-50, w, nb))
+
+    if case == "one_segment":
+        return [pair(5000, 7000, 20_000)]
+    if case == "many_short":
+        return [pair(int(rng.integers(1, 300)), int(rng.integers(1, 300)), 900)
+                for _ in range(500)]
+    if case == "longer_than_tile":
+        return [pair(3 * SI.TILE + 17, 4000, 9000), pair(SI.TILE, 50, 200),
+                pair(SI.TILE + 1, SI.TILE + 1, 3000)]
+    if case == "big_among_short":          # the longest exact check at scale 100
+        lists = [pair(int(rng.integers(1, 3000)), int(rng.integers(1, 3000)),
+                      40_000) for _ in range(1000)]
+        lists.insert(500, pair(86_609, 158_241, 4_000_000))
+        return lists
+    if case == "window_over_budget":       # unsorted probes over a long build
+        return [pair(2000, 4 * SI.SMEM_KEYS, 100_000, sort_a=False),
+                pair(20_000, 4 * SI.SMEM_KEYS, 100_000)]
+    if case == "unsorted_duplicates":
+        return [(np.repeat(rng.permutation(400) - 100, 3),
+                 rng.integers(-9, 9, 1200), np.sort(rng.integers(-60, 300, 700)),
+                 rng.integers(-9, 9, 700)) for _ in range(5)]
+    if case == "wrapping":
+        return [(np.zeros(1000), np.full(1000, 2**30 + 7), np.zeros(999),
+                 np.full(999, 2**29 + 3)), pair(300, 517, 900, w=2**31 - 1)]
+    if case == "empty_segments":
+        return [([], [], [1, 2], [1, 1]), pair(40, 30, 60), ([3, 1], [1, 1], [], []),
+                ([], [], [], []), pair(1, 1, 2)]
+    if case == "no_segments":
+        return []
+    raise KeyError(case)
+
+
+def _pack(lists, rng):
+    """The list pairs as segments of base arrays, with unrelated ids between
+    them: the base tensors on the host and the int64 bounds."""
+    bases, bounds = [[], [], [], []], [[], [], [], []]
+    for case in lists:
+        for side in (0, 1):
+            gap = int(rng.integers(0, 5))
+            pos = sum(len(x) for x in bases[2 * side])
+            for c in (0, 1):
+                bases[2 * side + c] += [rng.integers(-9, 9, gap),
+                                        np.asarray(case[2 * side + c], np.int64)]
+            bounds[2 * side] += [pos + gap]
+            bounds[2 * side + 1] += [len(case[2 * side])]
+    base = [np.concatenate(x) if x else np.zeros(0) for x in bases]
+    return base, [np.asarray(x, np.int64) for x in bounds]
+
+
+def _staged_windows(a, a_off, a_len, b, b_off, b_len):
+    """Per tile, whether its build window fits ``SMEM_KEYS`` (the kernel's
+    shared-memory branch) or not (its global-memory branch)."""
+    seg, start = SI.tile_list(a_len, (a_len > 0) & (b_len > 0))
+    fits = []
+    for k, s0 in zip(seg, start):
+        keys = a[a_off[k] + s0:a_off[k] + min(a_len[k], s0 + SI.TILE)]
+        bk = b[b_off[k]:b_off[k] + b_len[k]]
+        wn = (np.searchsorted(bk, keys.max(), "right")
+              - np.searchsorted(bk, keys.min(), "left"))
+        fits.append(wn <= SI.SMEM_KEYS)
+    return np.asarray(fits, bool)
+
+
+SEGMENT_CASES = ["one_segment", "many_short", "longer_than_tile",
+                 "big_among_short", "window_over_budget", "unsorted_duplicates",
+                 "wrapping", "empty_segments", "no_segments"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segmented_kernels_equal_plain(dev, case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    (a, aw, b, bw), (a_off, a_len, b_off, b_len) = _pack(
+        _segment_lists(case, rng), rng)
+    fits = _staged_windows(a, a_off, a_len, b, b_off, b_len)
+    if case == "window_over_budget":       # both branches of the kernel
+        assert fits.any() and not fits.all()
+    ta, taw, tb, tbw = _i32(dev, a, aw, b, bw)
+    bounds = (a_off, a_len, b_off, b_len)
+    got, n = _counted("sorted_intersect", SI.sorted_intersect_segments, ta,
+                      taw, a_off, a_len, tb, tbw, b_off, b_len)
+    assert n == (1 if len(fits) else 0)
+    want = SI.sorted_intersect_segments_plain(ta, taw, a_off, a_len, tb, tbw,
+                                              b_off, b_len)
+    got_c, n = _counted("join_count", JC.join_count_segments, ta, a_off, a_len,
+                        tb, tbw, b_off, b_len)
+    assert n == (1 if a_len.any() else 0)
+    want_c = JC.join_count_segments_plain(ta, a_off, a_len, tb, tbw, b_off,
+                                          b_len)
+    got_o = ops.intersect_counts(a, aw, *bounds[:2], b, bw, *bounds[2:])
+    got_m = ops.match_counts_segments(a, a_off, a_len, b, bw, b_off, b_len)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == (len(a_off),)
+    assert torch.equal(got, want) and torch.equal(got_o, want)
+    assert got_c.shape == (int(a_len.sum()),)
+    assert torch.equal(got_c, want_c) and torch.equal(got_m, want_c)
+
+
 @pytest.mark.parametrize("n,n_seg", [(1, 1), (1000, 37), (3_600_000, 400_000),
                                      (0, 3), (10, 0)])
 def test_seg_bitmap_kernel_equals_plain(dev, n, n_seg):
@@ -386,7 +491,7 @@ def _scan_inputs(rng, B, S, D, N):
 
 @pytest.mark.parametrize("B,S,D,N", [(1, 64, 256, 8), (2, 100, 300, 16),
                                      (1, 37, 5, 32), (3, 0, 7, 16),
-                                     (1, 1024, 8192, 16)])
+                                     (1, 1024, 8192, 16), (2, 5, 7, 0)])
 def test_ssm_scan_kernel_equals_plain(dev, B, S, D, N):
     from repro_torch.kernels import ssm_scan as SS
 
@@ -394,7 +499,8 @@ def test_ssm_scan_kernel_equals_plain(dev, B, S, D, N):
                                              S, D, N)]
     before = build.LAUNCHES["ssm_scan"]
     y, h = SS.ssm_scan(*args)
-    assert build.LAUNCHES["ssm_scan"] == before + 1
+    # no state (N = 0): nothing to launch, and y is zeros
+    assert build.LAUNCHES["ssm_scan"] == before + (1 if N else 0)
     y0, h0 = SS.ssm_scan_plain(*args)
     torch.cuda.synchronize()
     assert y.shape == (B, S, D) and h.shape == (B, D, N)

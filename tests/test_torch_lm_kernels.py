@@ -194,3 +194,15 @@ def test_ssm_plain_rejects_bad_arguments():
         ssm_scan(x, bt, bt, x, torch.zeros((4, 3)))
     with pytest.raises(TypeError, match="dtype"):
         ssm_scan_plain(x.double(), bt, bt, x, torch.zeros((4, 2)))
+
+
+def test_ssm_plain_gives_zero_y_without_state():
+    """N = 0: ``y`` is the empty sum over states, zeros, as the reference's
+    oracle gives; the wrapper (plain on the CPU) returns the same."""
+    B, S, D, N = 2, 5, 7, 0
+    args = _scan_inputs(np.random.default_rng(3), B, S, D, N)
+    y0, h0 = ssm_scan_plain(*(_t(v) for v in args))
+    y, h = ssm_scan(*(_t(v) for v in args))
+    assert y.shape == y0.shape == (B, S, D) and h.shape == h0.shape == (B, D, 0)
+    assert not y.any() and not y0.any()
+    _close(y0, ref_oracles.ssm_scan_ref(*(jnp.asarray(v) for v in args)), 0)

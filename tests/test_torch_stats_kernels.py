@@ -19,6 +19,7 @@ from repro.kernels import ops as ref_ops              # noqa: E402
 from repro.kernels import ref                         # noqa: E402
 from repro.rdf import generator as ref_gen            # noqa: E402
 from repro_torch.common.hashing import splitmix64     # noqa: E402
+from repro_torch.core.characteristic_pairs import CPStats  # noqa: E402
 from repro_torch.core.characteristic_sets import (    # noqa: E402
     compute_characteristic_sets, compute_characteristic_sets_torch)
 from repro_torch.core.federation import (             # noqa: E402
@@ -355,3 +356,172 @@ def test_algorithm1_through_ops_matches_both_builds(small_federation, fed_cps_op
     total_checks = sum(r.n_checked_pairs for r in fed_cps_ops.values())
     assert total_checks == stats.pruning_checked == ref_stats.pruning_checked
     assert total_checks > 0 and stats.fed_cp
+
+
+# --------------------------------------------------------------------------
+# the segmented entry points: K list pairs in one call
+# --------------------------------------------------------------------------
+
+def _packed(layout: str):
+    """``LIST_CASES`` (and empty segments) packed as segments of shared base
+    arrays, with unrelated ids between them: ``(a, aw, a_off, a_len, b, bw,
+    b_off, b_len)``, the bases int32 numpy, the bounds int64."""
+    rng = np.random.default_rng(sum(map(ord, layout)))
+    if layout == "none":
+        z = np.zeros(0, np.int64)
+        return (np.zeros(5, np.int32),) * 2 + (z, z) + (np.zeros(4, np.int32),) * 2 + (z, z)
+    if layout == "list_cases":
+        cases = [_lists(c) for c in LIST_CASES]
+        cases.insert(3, ([], [], [], []))                 # both sides empty
+        cases.append(([4, 9], [1, 1], [], []))
+    else:                                                 # one build, many probes
+        b, bw = _lists("ragged")[2:]
+        cases = [(rng.permutation(rng.choice(900, n, replace=False)),
+                  rng.integers(-5, 60, n), b, bw) for n in (0, 7, 300, 899)]
+    bases = [[], [], [], []]
+    bounds = [[], [], [], []]
+    for case in cases:
+        for side in (0, 1):
+            keys, wts = (np.asarray(x, np.int64) for x in case[2 * side:2 * side + 2])
+            gap = rng.integers(0, 4)
+            pos = sum(len(x) for x in bases[2 * side])
+            bases[2 * side].append(rng.integers(-99, 99, gap))
+            bases[2 * side + 1].append(rng.integers(-99, 99, gap))
+            if layout == "shared_build" and side == 1 and pos:
+                bounds[2].append(bounds[2][0])            # the first copy
+                bounds[3].append(len(keys))
+                continue
+            bases[2 * side].append(keys)
+            bases[2 * side + 1].append(wts)
+            bounds[2 * side].append(pos + gap)
+            bounds[2 * side + 1].append(len(keys))
+    a, aw, b, bw = (np.concatenate(x).astype(np.int32) for x in bases)
+    a_off, a_len, b_off, b_len = (np.asarray(x, np.int64) for x in bounds)
+    return a, aw, a_off, a_len, b, bw, b_off, b_len
+
+
+SEG_LAYOUTS = ["list_cases", "shared_build", "none"]
+
+
+def _segs(x, off, length):
+    return [x[o:o + n] for o, n in zip(off, length)]
+
+
+@pytest.mark.parametrize("layout", SEG_LAYOUTS)
+def test_sorted_intersect_segments_plain_matches_reference(layout):
+    a, aw, a_off, a_len, b, bw, b_off, b_len = _packed(layout)
+    got = SI.sorted_intersect_segments(_t(a), _t(aw), a_off, a_len, _t(b),
+                                       _t(bw), b_off, b_len)
+    assert got.dtype == torch.int32 and got.shape == (len(a_off),)
+    for k, (sa, saw, sb, sbw) in enumerate(zip(
+            _segs(a, a_off, a_len), _segs(aw, a_off, a_len),
+            _segs(b, b_off, b_len), _segs(bw, b_off, b_len))):
+        oracle = ref.sorted_intersect_weighted_ref(
+            jnp.asarray(sa), jnp.asarray(saw), jnp.asarray(sb), jnp.asarray(sbw))
+        assert int(got[k]) == int(oracle)
+        if _nonempty(sa, sb):
+            assert int(got[k]) == ref_ops.intersect_count(sa, saw, sb, sbw)
+    got_ops = ops.intersect_counts(a, aw, a_off, a_len, b, bw, b_off, b_len,
+                                   device="cpu")
+    assert torch.equal(got_ops, got)
+
+
+@pytest.mark.parametrize("layout", SEG_LAYOUTS)
+def test_join_count_segments_plain_matches_reference(layout):
+    p, _, p_off, p_len, b, bw, b_off, b_len = _packed(layout)
+    got = JC.join_count_segments(_t(p), p_off, p_len, _t(b), _t(bw), b_off,
+                                 b_len)
+    assert got.dtype == torch.int32 and got.shape == (int(p_len.sum()),)
+    ends = np.cumsum(p_len)
+    for k, (sp, sb, sbw) in enumerate(zip(_segs(p, p_off, p_len),
+                                          _segs(b, b_off, b_len),
+                                          _segs(bw, b_off, b_len))):
+        part = got[ends[k] - len(sp):ends[k]].numpy()
+        oracle = np.asarray(ref.join_count_ref(jnp.asarray(sp), jnp.asarray(sb),
+                                               jnp.asarray(sbw)))
+        np.testing.assert_array_equal(part, oracle)
+        if _nonempty(sp, sb):
+            np.testing.assert_array_equal(part, ref_ops.match_counts(sp, sb, sbw))
+    got_ops = ops.match_counts_segments(p, p_off, p_len, b, bw, b_off, b_len,
+                                        device="cpu")
+    assert torch.equal(got_ops, got)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_list_covers_every_probe_once(seed):
+    rng = np.random.default_rng(seed)
+    length = rng.choice([0, 1, SI.TILE - 1, SI.TILE, SI.TILE + 1, 5000], 40)
+    keep = rng.random(40) < 0.8
+    seg, start = SI.tile_list(length, keep)
+    assert seg.dtype == start.dtype == np.int64
+    assert (np.diff(seg) >= 0).all() and (start % SI.TILE == 0).all()
+    for k in range(40):
+        got = start[seg == k]
+        want = np.arange(0, length[k], SI.TILE) if keep[k] else []
+        np.testing.assert_array_equal(got, want)
+    # the launch table: four (or five) rows of 40 segments, then the tiles
+    off = np.cumsum(length) - length
+    table, n_tiles = SI.segment_table(off, length, off, length, keep, "cpu",
+                                      out_off=off)
+    assert n_tiles == len(seg)
+    np.testing.assert_array_equal(table.numpy(), np.concatenate(
+        [off, length, off, length, off, seg, start]))
+
+
+def test_segmented_wrappers_raise_on_bad_segments():
+    x = torch.zeros(6, dtype=torch.int32)
+    for a_off, a_len, b_off, b_len, err in (
+            ([0], [7], [0], [1], ValueError),       # past the base
+            ([-1], [1], [0], [1], ValueError),
+            ([0], [-1], [0], [1], ValueError),
+            ([0, 1], [1, 1], [0], [1], ValueError),  # K differs
+            ([[0]], [[1]], [[0]], [[1]], ValueError),
+            ([0.0], [1.0], [0], [1], TypeError)):
+        with pytest.raises(err):
+            SI.sorted_intersect_segments(x, x, a_off, a_len, x, x, b_off, b_len)
+        with pytest.raises(err):
+            JC.join_count_segments(x, a_off, a_len, x, x, b_off, b_len)
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        SI.sorted_intersect_segments(meta, meta, [0], [1], meta, meta, [0], [1])
+    with pytest.raises(ValueError):
+        JC.join_count_segments(meta, [0], [1], meta, meta, [0], [1])
+
+
+def test_segmented_entry_points_default_to_the_card():
+    import inspect
+
+    for fn in (ops.intersect_counts, ops.match_counts_segments):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_federated_cps_ops_equal_the_per_check_loop(small_federation,
+                                                    fed_cps_ops):
+    """One launch per source pair gives what one ``intersect_count`` and
+    one ``match_counts`` call per exact check gave: the same checks, CP rows
+    and counts, in the same order."""
+    _, stats = small_federation
+    for (i, j), res in fed_cps_ops.items():
+        eo, es = stats.exports[i], stats.exports[j]
+        by_intersect, by_match, checked = [], [], 0
+        for r, c2 in res.pairs:
+            ents, mult = eo.objects_row(r)
+            subj = es.subjects_of(c2)
+            if len(ents) == 0 or len(subj) == 0:
+                continue
+            checked += 1
+            key = (int(eo.obj_pred[r]), int(eo.obj_cs[r]), c2)
+            ones = np.ones(len(subj), np.int32)
+            cnt = ops.intersect_count(ents, mult, subj, ones, device="cpu")
+            if cnt:
+                by_intersect.append((*key, cnt))
+            mc = ops.match_counts(ents, subj, ones, device="cpu")
+            m = int((mult.astype(np.int64) * mc).sum())
+            if m:
+                by_match.append((*key, m))
+        assert res.n_checked_pairs == checked
+        for got, rows in ((res.cps, by_intersect), (res.match_cps, by_match)):
+            cols = np.asarray(rows, np.int64).reshape(-1, 4).T
+            want = CPStats.from_rows(*cols, src1=eo.src, src2=es.src)
+            for f in ("pred", "cs1", "cs2", "count", "src1", "src2"):
+                np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
