@@ -59,7 +59,8 @@ read just after; the plan comparisons with the numpy backend, the kernel
 checks and all timings run outside those windows, so their own launches are
 not counted.  Then the card's name and power limit, one JSON line with every
 kernel's launches on the main paths, error against its plain version, time
-and bound (``dp_layer`` twice, at the largest tile of each tiled cell), and
+and bound (``dp_sweep`` at clique12 with clique14's times beside it,
+``dp_layer`` twice, at the largest tile of each tiled cell), and
 last ``{"ok": true, "device": ...}``.
 No phase catches its own failure: any failure exits non-zero.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -173,10 +174,11 @@ def max_abs_err(got, want) -> float:
 
 
 def sweep_bound(sched, B: int, size: int) -> "tuple[float, str]":
-    """Least time for one ``dp_sweep`` call: its inputs read once (the real
-    pairs of the schedule, ``col_ptr``, ``layer_cols`` and six (B, 2^n)
-    float64 planes), its outputs written once (cost f64, strat and split
-    i32), against pricing every real (pair, member)."""
+    """Least time for one ``dp_sweep`` call: the inputs the DP function
+    needs read once (the real pairs of the schedule, ``col_ptr``,
+    ``layer_cols`` and six (B, 2^n) float64 planes; not the kernel's work
+    list), its outputs written once (cost f64, strat and split i32),
+    against pricing every real (pair, member)."""
     nbytes = (sched.n_pairs * 8 + sched.col_ptr.nbytes
               + sched.layer_cols.nbytes + B * size * (6 * 8 + 8 + 4 + 4))
     ops = sched.n_pairs * B * PRICE_OPS
@@ -288,7 +290,7 @@ def phase_kernels(state: dict) -> None:
                                                 cost0, n_src0, src_w0)]
     params = (1.0, 1.0, 5.0, 20)
     sargs = (params, *sched.device_arrays(dev), *t)
-    got = K.dp_sweep(*sargs)
+    got = K.dp_sweep(*sargs, **sched.device_work(dev))
     want = K.dp_sweep_plain(*sargs)
     torch.cuda.synchronize()
     sweep_err = max_abs_err(got, want)
@@ -567,9 +569,9 @@ class _Recorder:
     def remove(self) -> None:
         self.K.dp_sweep, self.K.dp_layer = self.real
 
-    def _sweep(self, *args):
-        self.sweeps.append(args)
-        return self.real[0](*args)
+    def _sweep(self, *args, **kw):
+        self.sweeps.append((args, kw))
+        return self.real[0](*args, **kw)
 
     def _layer(self, *args):
         self.tiles.append(args)
@@ -583,6 +585,82 @@ def _plan_large_star(case, backend: str = "torch"):
     _, _, B, _, g, stats, sels, q = case
     return jo.dp_join_order_batch([g] * B, stats, sels, CostModel(),
                                   q.distinct, dp_backend=backend)
+
+
+def _item_sizes(sched, args) -> dict:
+    """``dp_sweep``'s device time (``queued_ms``) on one main-path input
+    with the work list cut at ``ITEM_PAIRS`` and at its neighbours (half and
+    twice as many pairs), each held exactly to the plain version; fails
+    when a reading holds host time."""
+    import torch
+
+    from repro_torch.kernels import dp_layer as K
+
+    want = K.dp_sweep_plain(*args)
+    dev = args[1].device
+    out = {}
+    for k in (K.ITEM_PAIRS // 2, K.ITEM_PAIRS, 2 * K.ITEM_PAIRS):
+        items, item_ptr = (torch.from_numpy(x).to(dev) for x in
+                           K.work_items(sched.layer_cols, sched.col_ptr,
+                                        1 << sched.n, k=k))
+
+        def run():
+            return K.dp_sweep(*args, items=items, item_ptr=item_ptr)
+
+        err = max_abs_err(run(), want)
+        if err != 0.0:
+            raise AssertionError(f"dp_sweep with {k}-pair items differs "
+                                 f"from its plain version: {err}")
+        ms, queued = queued_ms(run)
+        if not queued:
+            raise AssertionError(f"dp_sweep with {k}-pair items: the host "
+                                 f"could not queue the calls")
+        out[k] = ms
+    return out
+
+
+def _resident_split(case, reps: int = 5) -> dict:
+    """Host clock over resident planning calls, split three ways: the
+    ``dp_sweep`` wrapper call closed by a sync, the rest of
+    ``_resident_sweep`` (its seed math, the uploads, the copy back and the
+    merge) and everything else in ``dp_join_order_batch``.  Medians over
+    ``reps`` calls, in ms."""
+    import torch
+
+    from repro_torch.core import join_order as jo
+    from repro_torch.kernels import dp_layer as K
+
+    real_sweep, real_resident = K.dp_sweep, jo._resident_sweep
+    clock = {}
+
+    def sweep(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_sweep(*args, **kw)
+        torch.cuda.synchronize()
+        clock["sweep"] += time.perf_counter() - t0
+        return out
+
+    def resident(*args, **kw):
+        t0 = time.perf_counter()
+        real_resident(*args, **kw)
+        clock["resident"] += time.perf_counter() - t0
+
+    runs = []
+    K.dp_sweep, jo._resident_sweep = sweep, resident
+    try:
+        for _ in range(reps):
+            clock.update(sweep=0.0, resident=0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _plan_large_star(case)
+            total = time.perf_counter() - t0
+            runs.append((clock["sweep"], clock["resident"] - clock["sweep"],
+                         total - clock["resident"], total))
+    finally:
+        K.dp_sweep, jo._resident_sweep = real_sweep, real_resident
+    return {k: statistics.median(r[i] for r in runs) * 1e3 for i, k in
+            enumerate(("dp_sweep_call_ms", "seed_and_merge_ms", "rest_ms",
+                       "total_ms"))}
 
 
 def phase_large_star(state: dict) -> None:
@@ -620,6 +698,9 @@ def phase_large_star(state: dict) -> None:
         kname = "dp_sweep" if mode == "resident" else "dp_layer"
         if launches[kname] == 0:
             raise AssertionError(f"{shape}{n}: {kname} never launched")
+        if mode == "resident" and launches[kname] != 1:
+            raise AssertionError(f"{shape}{n}: {launches[kname]} dp_sweep "
+                                 f"launches, expected one per sweep")
         runs.append((case, trees, rec, launches))
     state["large_star_runs"] = runs
 
@@ -627,9 +708,11 @@ def phase_large_star(state: dict) -> None:
 def check_large_star(state: dict) -> None:
     """Each large-star plan of the main path against the numpy backend's,
     then the timings: the planning call (CUDA events), its kernel and the
-    kernel's plain version on the inputs the main path gave it (the resident
-    sweep: CUDA events around one call; every ``dp_layer`` tile: device time
-    of calls queued back to back, ``queued_ms``)."""
+    kernel's plain version on the inputs the main path gave it, as device
+    time of calls queued back to back (``queued_ms``; the resident sweep
+    also as one call timed with CUDA events, ``call_ms``), and for the
+    resident cells a host-clock split of the planning call
+    (``_resident_split``)."""
     import torch
 
     from repro_torch.core import join_order as jo
@@ -653,20 +736,31 @@ def check_large_star(state: dict) -> None:
                "plan_ms": sweep_ms, "numpy_plan_ms": numpy_ms,
                "launches": launches, "peak_device_bytes": peak}
         if mode == "resident":
-            args = rec.sweeps[0]
+            args, work = rec.sweeps[0]
             sched = jo._dp_schedule(g, jo.DP_BLOCK_BYTES, B)
-            kms = cuda_ms(lambda: K.dp_sweep(*args))
-            pms = cuda_ms(lambda: K.dp_sweep_plain(*args))
-            err = max_abs_err(K.dp_sweep(*args), K.dp_sweep_plain(*args))
+            # device time of calls queued back to back, and one call timed
+            # with CUDA events (which carries the wrapper's host work)
+            kms, queued = queued_ms(lambda: K.dp_sweep(*args, **work))
+            pms, plain_queued = queued_ms(lambda: K.dp_sweep_plain(*args),
+                                          k=3)
+            call = cuda_ms(lambda: K.dp_sweep(*args, **work))
+            err = max_abs_err(K.dp_sweep(*args, **work),
+                              K.dp_sweep_plain(*args))
             bound, by = sweep_bound(sched, B, 1 << n)
             # the DP state on the card: six seed planes in, the working
-            # cost/n_src/src_w copies (float64) and strat/split (int32)
-            row.update(kernel_ms=kms, plain_ms=pms, max_abs_err=err,
-                       bound_ms=bound, bound_by=by, pairs=sched.n_pairs,
-                       device_busy_share=kms / sweep_ms,
+            # (cost, card, n_src, src_w) records, the cost plane (float64)
+            # and strat/split (int32)
+            row.update(kernel_ms=kms, queued=queued, call_ms=call,
+                       plain_ms=pms, plain_queued=plain_queued,
+                       max_abs_err=err, bound_ms=bound, bound_by=by,
+                       pairs=sched.n_pairs, device_busy_share=kms / sweep_ms,
                        schedule_bytes=sum(int(a.numel() * a.element_size())
-                                          for a in args[1:5]),
-                       state_bytes=B * (1 << n) * (9 * 8 + 2 * 4))
+                                          for a in (*args[1:5],
+                                                    *work.values())),
+                       state_bytes=B * (1 << n) * (11 * 8 + 2 * 4),
+                       items=int(work["items"].shape[0]),
+                       item_pairs_ms=_item_sizes(sched, args),
+                       host_split=_resident_split(case))
         else:
             # every tile of the main path replayed on the card: device time
             # of calls queued back to back (a few microseconds a tile is
@@ -1583,7 +1677,7 @@ def _exp_shared_s(instr: int, exps: int) -> float:
 
 def summary(state: dict) -> dict:
     ls = state["large_star"]
-    sweep = ls["clique12"]
+    sweep, sweep14 = ls["clique12"], ls["clique14"]
     st = state["stats_kernels"]
     err = state["err"]
     return {"kernels": [
@@ -1594,7 +1688,11 @@ def summary(state: dict) -> dict:
          "max_abs_err": max(err["dp_sweep"], sweep["max_abs_err"]),
          "ms": sweep["kernel_ms"], "plain_ms": sweep["plain_ms"],
          "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "call_ms": sweep["call_ms"],
+         "clique14_ms": sweep14["kernel_ms"],
+         "clique14_plain_ms": sweep14["plain_ms"],
+         "clique14_bound_ms": sweep14["bound_ms"],
+         "clique14_call_ms": sweep14["call_ms"]},
     ] + [
         # one entry per tiled cell, at its largest tile; launches are the
         # cell's own on the main path (the two sum to the kernel's count)

@@ -59,7 +59,7 @@ plan even when several plans share the optimal cost.
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from itertools import combinations
 
 import numpy as np
@@ -310,9 +310,9 @@ _STRAT_SINGLE, _STRAT_EXCL, _STRAT_HASH, _STRAT_BIND = 1, 2, 3, 4
 
 # Observability for the torch backend's two execution modes: 'resident' ==
 # the whole sweep ran with the DP state on the device (kernels.dp_layer.
-# dp_sweep, one launch per layer), 'tiled' == it fell back to per-layer-tile
-# kernel calls (schedule too large for the memory budget, or n too big for
-# int32 masks).
+# dp_sweep, one cooperative launch per sweep), 'tiled' == it fell back to
+# per-layer-tile kernel calls (schedule too large for the memory budget, or
+# n too big for int32 masks).
 DP_SWEEP_COUNTERS = {"resident": 0, "tiled": 0,
                      "schedule_builds": 0, "schedule_hits": 0}
 
@@ -433,8 +433,10 @@ class _DPSchedule:
     padding) — and ``col_ptr``, each column's run ``[col_ptr[l, c],
     col_ptr[l, c + 1])`` of pairs, which is what the sweep reads in place
     of ``pair_seg`` (so ``pair_seg`` stays on the host).  Extents are padded to the reference's power-of-two buckets, and
-    ``nbytes`` counts the four arrays the reference counts (not ``col_ptr``),
-    so both packages make the same budget decisions."""
+    ``nbytes`` counts the four arrays the reference counts (not ``col_ptr``
+    or the work list), so both packages make the same budget decisions.
+    ``items``/``item_ptr`` are the kernel's work list
+    (``kernels.dp_layer.work_items``), built with the schedule."""
 
     n: int
     pair_a: np.ndarray          # (L, P) int32, sentinel-padded with 0
@@ -447,10 +449,16 @@ class _DPSchedule:
     dev: "dict | None" = None   # device copies of the index arrays the
                                 # sweep reads, per device (uploaded once
                                 # per topology, not once per sweep)
+    items: np.ndarray = field(init=False)      # (N, 4) int32 work items
+    item_ptr: np.ndarray = field(init=False)   # (L + 1,) int32 per layer
 
-    def device_arrays(self, device) -> tuple:
-        """``(pair_a, pair_b, layer_cols, col_ptr)`` on ``device``: the
-        schedule arguments of ``kernels.dp_layer.dp_sweep``."""
+    def __post_init__(self):
+        from repro_torch.kernels.dp_layer import work_items
+
+        self.items, self.item_ptr = work_items(self.layer_cols, self.col_ptr,
+                                               1 << self.n)
+
+    def _on(self, device) -> tuple:
         import torch
 
         key = str(torch.device(device))
@@ -459,9 +467,20 @@ class _DPSchedule:
         arrs = self.dev.get(key)
         if arrs is None:
             arrs = tuple(torch.from_numpy(x).to(device) for x in (
-                self.pair_a, self.pair_b, self.layer_cols, self.col_ptr))
+                self.pair_a, self.pair_b, self.layer_cols, self.col_ptr,
+                self.items, self.item_ptr))
             self.dev[key] = arrs
         return arrs
+
+    def device_arrays(self, device) -> tuple:
+        """``(pair_a, pair_b, layer_cols, col_ptr)`` on ``device``: the
+        schedule arguments of ``kernels.dp_layer.dp_sweep``."""
+        return self._on(device)[:4]
+
+    def device_work(self, device) -> dict:
+        """The work list on ``device``: ``dp_sweep``'s keyword arguments
+        ``items`` and ``item_ptr``."""
+        return dict(zip(("items", "item_ptr"), self._on(device)[4:]))
 
 
 def _column_major(pair_a: np.ndarray, pair_b: np.ndarray,
@@ -1153,7 +1172,8 @@ def _resident_sweep(sched: _DPSchedule, cm: CostModel, card: np.ndarray,
     up = [torch.from_numpy(np.ascontiguousarray(x, np.float64)).to(device)
           for x in (card, excl_cost, excl_w, cost, n_src, src_w)]
     cost_d, strat_d, split_d = as_numpy(*dp_sweep(
-        params, *sched.device_arrays(device), *up))
+        params, *sched.device_arrays(device), *up,
+        **sched.device_work(device)))
 
     # strat 0 == the device never wrote the mask (singletons, disconnected
     # or unreachable subsets): those keep their host-seeded state.  Only

@@ -7,10 +7,13 @@ hand-written CUDA kernel (``csrc/``) beside its plain PyTorch version:
 
 ``dp_sweep``
     The whole member-batched sweep with the DP state resident on the card:
-    ``csrc/dp_sweep.cu`` runs once per layer (``L = n - 1`` launches on the
-    current stream), one warp per (member, connected subset) over the
-    subset's contiguous run of the topology's column-major pair schedule.
-    Only the seeds go up and the final ``(cost, strat, split)`` comes back.
+    ``csrc/dp_sweep.cu`` is one cooperative launch per sweep on the current
+    stream, a persistent grid that loops over the layers with a grid
+    barrier between them.  Warps walk the layer's work items (runs of at
+    most ``ITEM_PAIRS`` pairs of one connected subset's column in the
+    topology's column-major pair schedule, ``work_items``) for every member; the
+    items of a split column merge their minima on the card.  Only the
+    seeds go up and the final ``(cost, strat, split)`` comes back.
     Replaces the reference's ``dp_sweep_resident`` (one ``lax.scan``).
 
 ``dp_layer``
@@ -50,21 +53,61 @@ from repro_torch.kernels.build import route as _route
 _STRAT_EXCL, _STRAT_HASH, _STRAT_BIND = 2, 3, 4   # mirror join_order's codes
 _BIG_ROW = 2**31 - 1                              # "no valid pair in this column"
 
-register("dp_sweep", "dp_sweep.cu", "dp_sweep_layer", [P] * 12 + [I] * 5 + [D] * 4)
+register("dp_sweep", "dp_sweep.cu", "dp_sweep_run", [P] * 18 + [I] * 7 + [D] * 4)
 register("dp_layer", "dp_layer.cu", "dp_layer_tile", [P] * 14 + [I] * 4 + [D] * 4)
 
-_SMS = 132                # streaming multiprocessors of an H100
+# Pairs one warp of dp_sweep's kernel prices at most: a column with more
+# pairs is cut into work items of this many (the last one shorter), whose
+# minima the kernel merges.  Chosen from chip_smoke.py's timings of the
+# resident cells over item sizes (`item_pairs_ms`, PERF.md).
+ITEM_PAIRS = 256
+
 _BLOCK_COLS = 32          # columns one dp_layer block covers at most
 _MAX_CHUNK_ROWS = 4096    # rows one dp_layer block walks at most
 _MIN_CHUNK_ROWS = 32
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (its
+    ``cudaDevAttrMultiProcessorCount``): what ``dp_layer``'s row chunks
+    are sized to fill and what ``dp_sweep``'s cooperative grid spans."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # --------------------------------------------------------------------------
 # Resident sweep
 # --------------------------------------------------------------------------
 
+def work_items(layer_cols: np.ndarray, col_ptr: np.ndarray, size: int,
+               k: int = ITEM_PAIRS) -> "tuple[np.ndarray, np.ndarray]":
+    """``dp_sweep``'s work list for one schedule: each real column's pair
+    run ``[col_ptr[l, c], col_ptr[l, c + 1])`` cut, in order, into items of
+    ``k`` pairs (the last one shorter; an empty run is one empty item).
+    Returns ``items (N, 4)`` int32 rows ``(column, lo, hi, first)`` grouped
+    by layer, layer ``l``'s at ``[item_ptr[l], item_ptr[l + 1])``;
+    ``first`` is -1 for a column of one item and otherwise the index of the
+    column's first item, where the kernel counts the column's arrivals."""
+    rows, ptr = [], [0]
+    for li in range(layer_cols.shape[0]):
+        cols = np.flatnonzero(layer_cols[li] < size)
+        lo = col_ptr[li, cols].astype(np.int64)
+        hi = col_ptr[li, cols + 1].astype(np.int64)
+        parts = np.maximum(1, -(-(hi - lo) // k))
+        start = np.cumsum(parts) - parts            # column's first item
+        of = np.repeat(np.arange(len(cols)), parts)
+        i_lo = lo[of] + (np.arange(len(of)) - start[of]) * k
+        first = np.where(parts[of] > 1, ptr[-1] + start[of], -1)
+        rows.append(np.stack([cols[of], i_lo, np.minimum(i_lo + k, hi[of]),
+                              first], axis=1))
+        ptr.append(ptr[-1] + len(of))
+    items = (np.concatenate(rows) if rows else np.empty((0, 4)))
+    return items.astype(np.int32), np.array(ptr, np.int32)
+
+
 def dp_sweep(params, pair_a, pair_b, layer_cols, col_ptr, card,
-             excl_cost, excl_w, cost0, n_src0, src_w0):
+             excl_cost, excl_w, cost0, n_src0, src_w0, *, items, item_ptr):
     """Run the whole member-batched DP sweep with the state on the device.
 
     Schedule (int32): ``pair_a``/``pair_b`` ``(L, P)`` are the flat
@@ -72,7 +115,9 @@ def dp_sweep(params, pair_a, pair_b, layer_cols, col_ptr, card,
     enumeration order; ``layer_cols`` ``(L, C)`` the layer's connected
     subsets (sentinel ``2^n``); ``col_ptr`` ``(L, C + 1)`` each column's run
     ``[col_ptr[l, c], col_ptr[l, c + 1])`` of pairs (positions from
-    ``col_ptr[l, C]`` on are padding).
+    ``col_ptr[l, C]`` on are padding); ``items`` ``(N, 4)`` the kernel's
+    work list ``(column, lo, hi, first)`` of ``work_items``, layer ``l``'s
+    items at ``[item_ptr[l], item_ptr[l + 1])`` (only the kernel reads it).
     State (float64, ``(B, 2^n)``): subset cardinalities, the exclusive-leaf
     seeds (``excl_cost = inf`` where none) and the singleton seeds
     (``n_src0 > 0`` is the bindable plane).  ``params`` is the cost model's
@@ -91,6 +136,9 @@ def dp_sweep(params, pair_a, pair_b, layer_cols, col_ptr, card,
         _check(nm, t, torch.int32, (L, P), dev)
     _check("layer_cols", layer_cols, torch.int32, (L, C), dev)
     _check("col_ptr", col_ptr, torch.int32, (L, C + 1), dev)
+    N = items.shape[0]
+    _check("items", items, torch.int32, (N, 4), dev)
+    _check("item_ptr", item_ptr, torch.int32, (L + 1,), dev)
     for nm, t in (("card", card), ("excl_cost", excl_cost),
                   ("excl_w", excl_w), ("cost0", cost0), ("n_src0", n_src0),
                   ("src_w0", src_w0)):
@@ -98,19 +146,29 @@ def dp_sweep(params, pair_a, pair_b, layer_cols, col_ptr, card,
     if _route(dev) == "plain":
         return dp_sweep_plain(params, pair_a, pair_b, layer_cols, col_ptr,
                               card, excl_cost, excl_w, cost0, n_src0, src_w0)
+    if items.data_ptr() % 16:
+        raise ValueError("items: not 16-byte aligned")
 
     iw, tw, rc, bb = (float(v) for v in params)
-    cost = cost0.clone()
-    n_src = n_src0.clone()
-    src_w = src_w0.clone()
-    strat = torch.zeros((B, size), dtype=torch.int32, device=dev)
-    split = torch.zeros((B, size), dtype=torch.int32, device=dev)
-    for layer in range(L):
-        _launch("dp_sweep", pair_a.data_ptr(), pair_b.data_ptr(),
-                col_ptr.data_ptr(), layer_cols.data_ptr(), card.data_ptr(),
-                excl_cost.data_ptr(), excl_w.data_ptr(), cost.data_ptr(),
-                n_src.data_ptr(), src_w.data_ptr(), strat.data_ptr(),
-                split.data_ptr(), layer, B, size, P, C, iw, tw, rc, bb)
+    # the kernel fills every output itself (seeds copied, winners cleared)
+    # and its working state, one (cost, card, n_src, src_w) record per
+    # (member, mask)
+    state = torch.empty((B, size, 4), dtype=torch.float64, device=dev)
+    cost = torch.empty((B, size), dtype=torch.float64, device=dev)
+    strat, split = (torch.empty((B, size), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    # per (member, item): a split column's partial (cost, position,
+    # is_bind) and, at its first item, the column's arrival counter
+    part = torch.empty((B * N, 2), dtype=torch.int64, device=dev)
+    arrived = torch.empty(B * N, dtype=torch.int32, device=dev)
+    _launch("dp_sweep", pair_a.data_ptr(), pair_b.data_ptr(),
+            col_ptr.data_ptr(), layer_cols.data_ptr(), items.data_ptr(),
+            item_ptr.data_ptr(), card.data_ptr(), excl_cost.data_ptr(),
+            excl_w.data_ptr(), cost0.data_ptr(), n_src0.data_ptr(),
+            src_w0.data_ptr(), state.data_ptr(), cost.data_ptr(),
+            strat.data_ptr(), split.data_ptr(),
+            part.data_ptr(), arrived.data_ptr(), L, B, size, P, C, N,
+            sm_count(dev), iw, tw, rc, bb)
     return cost, strat, split
 
 
@@ -226,7 +284,7 @@ def dp_layer(cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid,
     best = torch.empty((B, C), dtype=torch.float64, device=dev)
     row = torch.empty((B, C), dtype=torch.int32, device=dev)
     bind = torch.empty((B, C), dtype=torch.uint8, device=dev)
-    chunk = _chunk_rows(B, R, C)
+    chunk = _chunk_rows(B, R, C, sm_count(dev))
     n_chunks = -(-R // chunk) if R else 1
     # per-chunk minima, merged by a second kernel when R spans chunks
     n_part = B * C * n_chunks if n_chunks > 1 else 0
@@ -240,13 +298,13 @@ def dp_layer(cost_a, cost_b, card_a, n_src_b, src_w_b, bindable, valid,
     return best, row, bind
 
 
-def _chunk_rows(B: int, R: int, C: int) -> int:
+def _chunk_rows(B: int, R: int, C: int, sms: int) -> int:
     """Rows one ``dp_layer`` block walks: at most ``_MAX_CHUNK_ROWS``, halved
     (down to ``_MIN_CHUNK_ROWS``) until the grid of (member x column group,
-    row chunk) blocks covers the card's SMs at least twice."""
+    row chunk) blocks covers the card's ``sms`` SMs at least twice."""
     groups = B * -(-C // _BLOCK_COLS)
     chunk = _MAX_CHUNK_ROWS
-    while chunk > _MIN_CHUNK_ROWS and groups * -(-R // chunk) < 2 * _SMS:
+    while chunk > _MIN_CHUNK_ROWS and groups * -(-R // chunk) < 2 * sms:
         chunk //= 2
     return max(chunk, -(-R // 65535))       # the grid's y extent
 

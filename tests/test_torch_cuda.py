@@ -59,25 +59,44 @@ def _sweep_inputs(n, conn_masks, B, seed, n_excl):
     return card, excl_cost, excl_w, cost0, n_src0, src_w0
 
 
-@pytest.mark.parametrize("shape,n,B", [("tree", 8, 4), ("clique", 9, 2),
-                                       ("chain", 11, 3)])
-def test_dp_sweep_kernel_equals_plain(dev, shape, n, B):
+@pytest.mark.parametrize("shape,n,B,dead", [
+    ("tree", 8, 4, None), ("clique", 9, 2, None), ("chain", 11, 3, None),
+    ("clique", 14, 1, None),    # top column: 16,382 pairs, 64 items
+    ("clique", 10, 64, None),   # (item, member) units over one grid pass
+    ("clique", 12, 2, 3)])      # columns (split ones too) with no finite pair
+def test_dp_sweep_kernel_equals_plain(dev, shape, n, B, dead):
+    """One cooperative launch per sweep, equal to the plain version.  With
+    ``dead``, that star's leaf costs ``inf`` and has no source (no bind join
+    reaches it) in every member, and no subset holding it has an exclusive
+    seed, so no column holding it has a finite pair."""
     g, _, _, _ = shaped_planning_inputs(shape, n, seed=n)
     sched = jo._dp_schedule(g, jo.DP_BLOCK_BYTES, B)
-    conn = sched.layer_cols[sched.layer_cols < (1 << n)]
+    assert jo._resident_fits(sched, B, jo.DP_BLOCK_BYTES)
+    size = 1 << n
+    conn = sched.layer_cols[sched.layer_cols < size]
+    card, excl_cost, excl_w, cost0, n_src0, src_w0 = _sweep_inputs(
+        n, conn, B, seed=n + B, n_excl=15)
+    if dead is not None:
+        excl_cost[:, (np.arange(size) >> dead) & 1 == 1] = np.inf
+        cost0[:, 1 << dead] = np.inf
+        n_src0[:, 1 << dead] = 0.0
+        dead_cols = torch.from_numpy(conn[(conn >> dead) & 1 == 1]).to(dev)
     t = [torch.from_numpy(x).to(dev)
-         for x in _sweep_inputs(n, conn, B, seed=n + B, n_excl=15)]
+         for x in (card, excl_cost, excl_w, cost0, n_src0, src_w0)]
     idx = sched.device_arrays(dev)
     for params in PARAMS:
         before = build.LAUNCHES["dp_sweep"]
-        got = K.dp_sweep(params, *idx, *t)
-        assert build.LAUNCHES["dp_sweep"] == before + n - 1
+        got = K.dp_sweep(params, *idx, *t, **sched.device_work(dev))
+        assert build.LAUNCHES["dp_sweep"] == before + 1
         want = K.dp_sweep_plain(params, *idx, *t)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.device.type == dev.type and a.dtype == b.dtype
             assert torch.equal(a, b)
         assert bool((got[1] != 0).any())
+        if dead is not None:        # strat 0: no pair won, no seed
+            assert bool((got[1][:, dead_cols.long()] == 0).all())
+            assert bool(torch.isinf(got[0][:, dead_cols.long()]).all())
 
 
 @pytest.mark.parametrize("B,R,C", [(1, 2, 3), (4, 130, 7), (2, 3000, 1),
@@ -120,7 +139,7 @@ def test_dp_layer_kernel_first_minimum_across_chunks(dev, B, R, C):
     rng = np.random.default_rng(R + C)
     cost_a = np.full(shp, 50.0)
     cost_b = np.full(shp, 50.0)
-    chunk = K._chunk_rows(B, R, C)
+    chunk = K._chunk_rows(B, R, C, K.sm_count(dev))
     first = R // 4 + 17
     assert first // chunk >= 1                     # not in the first chunk
     ties = [first, first + 300, first + 3 * chunk + 5, R - 1]

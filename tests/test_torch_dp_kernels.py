@@ -50,7 +50,7 @@ def ref_kernels():
 def _port_sweep(sched, params, arrays):
     t = [torch.from_numpy(x) for x in arrays]
     return [x.numpy() for x in K.dp_sweep(params, *sched.device_arrays("cpu"),
-                                          *t)]
+                                          *t, **sched.device_work("cpu"))]
 
 
 @pytest.mark.parametrize("shape,n,B,seed", [
@@ -98,6 +98,47 @@ def test_port_schedule_equals_reference_schedule():
             assert (np.diff(seg) >= 0).all()
             counts = np.bincount(seg[seg < C], minlength=C)
             np.testing.assert_array_equal(np.diff(ps.col_ptr[li]), counts)
+
+
+@pytest.mark.parametrize("item_pairs", [K.ITEM_PAIRS, 8])
+@pytest.mark.parametrize("shape,n", [("chain", 9), ("tree", 8),
+                                     ("clique", 8)])
+def test_work_items_cover_each_column_once(shape, n, item_pairs):
+    """The resident kernel's work list: per layer, each real column's pair
+    run cut in order into items of at most ``item_pairs`` pairs, covering
+    it exactly once; a column of one item has ``first == -1``, the items of
+    a split column name the column's first item."""
+    g, _, _, _ = shaped_planning_inputs(shape, n, seed=n)
+    ps = jo._dp_schedule(g, jo.DP_BLOCK_BYTES, 1)   # built at ITEM_PAIRS
+    items, item_ptr = K.work_items(ps.layer_cols, ps.col_ptr, 1 << n,
+                                   k=item_pairs)
+    assert items.dtype == np.int32 and items.shape[1] == 4
+    assert item_ptr[0] == 0 and item_ptr[-1] == len(items)
+    n_split = 0
+    for li in range(ps.layer_cols.shape[0]):
+        its = items[item_ptr[li]:item_ptr[li + 1]]
+        real = np.flatnonzero(ps.layer_cols[li] < (1 << n))
+        np.testing.assert_array_equal(np.unique(its[:, 0]), real)
+        assert (np.diff(its[:, 0]) >= 0).all()          # columns in order
+        for c in real:
+            mine = np.flatnonzero(its[:, 0] == c)
+            assert (np.diff(mine) == 1).all()            # contiguous
+            run = its[mine]
+            lo, hi = ps.col_ptr[li, c], ps.col_ptr[li, c + 1]
+            assert run[0, 1] == lo and run[-1, 2] == hi
+            np.testing.assert_array_equal(run[1:, 1], run[:-1, 2])
+            assert ((run[:, 2] - run[:, 1]) <= item_pairs).all()
+            if len(run) == 1:
+                assert run[0, 3] == -1
+            else:
+                n_split += 1
+                assert ((run[:, 2] - run[:, 1]) > 0).all()
+                assert (run[:, 3] == item_ptr[li] + mine[0]).all()
+    if item_pairs == 8:
+        assert n_split > 0
+    else:                               # the list the schedule carries
+        np.testing.assert_array_equal(ps.items, items)
+        np.testing.assert_array_equal(ps.item_ptr, item_ptr)
 
 
 def test_dp_sweep_on_row_chunked_schedule(ref_kernels):
@@ -221,7 +262,7 @@ def test_dp_layer_row_chunks_fill_the_card(B, R, C):
     tall one, tree16's widest) run at least two waves of blocks over the
     card's 132 SMs, small tiles keep the 32-row floor, and no grid exceeds
     its 65,535 row chunks."""
-    chunk = K._chunk_rows(B, R, C)
+    chunk = K._chunk_rows(B, R, C, 132)
     n_chunks = -(-R // chunk) if R else 1
     assert chunk >= 32 and n_chunks <= 65535
     if B * C * R >= 1_000_000:
@@ -291,4 +332,4 @@ def test_wrappers_check_their_inputs():
     sa = list(sched.device_arrays("cpu"))
     sa[3] = sa[3][:, :-1].contiguous()            # col_ptr one column short
     with pytest.raises(ValueError):
-        K.dp_sweep(PARAMS[0], *sa, *planes)
+        K.dp_sweep(PARAMS[0], *sa, *planes, **sched.device_work("cpu"))
