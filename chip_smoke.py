@@ -15,7 +15,10 @@ Each phase prints one JSON line:
                 the DP kernels; for the four statistics kernels, inputs at
                 or above the ``stats`` phase's largest extents and ragged
                 ones (ties, duplicate build keys, empty lists, ``seg = -1``
-                rows);
+                rows; ``seg_bitmap``'s rows in and out of segment order,
+                each call's path read back and held to the rows' order;
+                ``summary_probe`` in both its forms and on rows off a
+                16-byte boundary);
 ``fedbench``    FedBench-like federation at scale 1.0: statistics, planning
                 with the default optimizer (torch DP on cuda), execution;
                 answers equal ``naive_evaluate`` and plans equal the numpy
@@ -36,7 +39,13 @@ Each phase prints one JSON line:
                 (for the two list kernels the largest source pair's
                 launch, every pair's launch timed and summed, and one
                 single-list call), with device times of calls queued back
-                to back;
+                to back; ``seg_bitmap`` also on the main path's rows
+                shuffled, ``summary_probe`` also on a 1000 x 600 block of
+                512 words, beside the launch floor (a queued
+                ``torch.cuda._sleep(0)``), each row naming the path or
+                form that ran; and Algorithm 1 once more, split on the
+                host clock into its probe calls, pair building, exact
+                checks, CP tables and the rest;
 ``lm``          LM serving at full published width, float32, TF32 off:
                 ``qwen2-0.5b`` (24 layers, 494 M params; 8 requests of
                 512-3072 prompt tokens, 32 new each, on 4 slots of a 4096
@@ -355,6 +364,67 @@ def _segment_pack(lists):
     return base, (offs[0], lens[0], offs[1], lens[1])
 
 
+# seg_bitmap's row layouts beyond the main path's (``seg_layout``), with
+# their plane heights
+SEG_LAYOUTS = (("interspersed_pads", 3000), ("long_segment", 40),
+               ("gaps", 5000), ("out_of_plane", 2000), ("sparse", 300_000),
+               ("long_pad_run", 300), ("unordered", 3000))
+
+
+def seg_layout(rng, case: str):
+    """``(seg, bucket)`` rows of one of ``SEG_LAYOUTS``: rows in segment
+    order with padding (``seg = -1``) between them, as the main path lays
+    them out; one segment of 5,000 rows among short ones; runs of empty
+    segments at the start, in the middle and at the end of the plane;
+    ordered rows with rows past the plane and buckets outside ``[0, 128)``
+    among them; gaps of 50,000 and more missing ids; a run of 5,000 pads;
+    and rows in no order over several thousand rows."""
+    import numpy as np
+
+    if case == "interspersed_pads":
+        seg = np.sort(rng.integers(0, 3000, 20_000))
+        seg[rng.random(20_000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 20_000)
+    if case == "long_segment":
+        seg = np.sort(np.concatenate([rng.integers(0, 40, 3000),
+                                      np.full(5000, 17)]))
+        seg[rng.random(8000) < 0.2] = -1
+        return seg, rng.integers(0, 128, 8000)
+    if case == "gaps":                 # present: [700, 1500) and [3000, 3500)
+        seg = np.sort(np.concatenate([rng.integers(700, 1500, 6000),
+                                      rng.integers(3000, 3500, 4000)]))
+        seg[rng.random(10_000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 10_000)
+    if case == "out_of_plane":
+        seg = np.sort(rng.integers(0, 2000, 12_000))
+        seg[rng.random(12_000) < 0.1] = -1
+        far = rng.random(12_000) < 0.05
+        seg[far] = rng.integers(2000, 2**31 - 1, int(far.sum()))
+        return seg, rng.integers(-3, 131, 12_000)
+    if case == "sparse":               # gaps of 50,000 and more missing ids
+        seg = np.sort(np.concatenate([rng.integers(0, 100, 3000),
+                                      rng.integers(50_000, 50_100, 3000),
+                                      rng.integers(200_000, 200_050, 3000)]))
+        seg[rng.random(9000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 9000)
+    if case == "long_pad_run":         # 5,000 pads between two segments
+        seg = np.sort(rng.integers(0, 300, 8000))
+        seg[1000:6000] = -1
+        return seg, rng.integers(0, 128, 8000)
+    if case == "unordered":
+        return rng.integers(-1, 3000, 20_000), rng.integers(0, 128, 20_000)
+    raise KeyError(case)
+
+
+def seg_path(seg, n_seg: int) -> str:
+    """The path ``seg_bitmap``'s kernel must take on the rows ``seg``:
+    ``"ordered"`` when some row is in the plane and ``seg`` does not
+    decrease over those rows, else ``"unordered"``."""
+    inside = seg[(seg >= 0) & (seg < n_seg)]
+    ordered = inside.numel() > 0 and bool((inside[1:] >= inside[:-1]).all())
+    return "ordered" if ordered else "unordered"
+
+
 def stats_kernel_cases(dev) -> dict:
     """The four statistics kernels against their plain versions on the card,
     exact: one case at or above the ``stats`` phase's largest extents (the
@@ -363,7 +433,10 @@ def stats_kernel_cases(dev) -> dict:
     subjects; a 1000 x 600 signature block of 512 words)
     and ragged ones: ties, duplicate build keys, unsorted and negative
     probes, empty lists, int32 wrap-around, ``seg = -1`` and out-of-plane
-    rows, a word count that is no multiple of the tile; and the two list
+    rows, ``seg_bitmap``'s rows in and out of segment order
+    (``SEG_LAYOUTS``, and the large case's rows shuffled), signature blocks
+    on both sides of ``summary_probe``'s form threshold with word counts of
+    1, 3, 5 and 512 and rows that start off a 16-byte boundary; and the two list
     kernels segmented: 301 list pairs in one launch, a build window above
     the shared-memory budget beside staged ones, no segments."""
     import numpy as np
@@ -441,26 +514,54 @@ def stats_kernel_cases(dev) -> dict:
     seg_big[rng.random(n_big) < 0.3] = -1
     seg_cases = [
         (seg_big, rng.integers(0, 128, n_big), n_subj),
+        (rng.permutation(seg_big), rng.integers(0, 128, n_big), n_subj),
         (rng.integers(-3, 40, 1000), rng.integers(-2, 131, 1000), 35),
         (np.zeros(5000), np.full(5000, 7), 1),          # one hot cell
         ([], [], 10), ([0, 1], [3, 4], 0),
-    ]
+    ] + [(*seg_layout(rng, case), n_seg) for case, n_seg in SEG_LAYOUTS]
     sb_err = 0.0
+    paths = {"ordered": 0, "unordered": 0, None: 0}
     for seg, bkt, n_seg in seg_cases:
         ts, tk = up(seg, bkt)
-        sb_err = max(sb_err, max_abs_err([SB.seg_bitmap(ts, tk, n_seg)],
+        got, path = SB.seg_bitmap_path(ts, tk, n_seg)
+        want = None if not (len(seg) and n_seg) else seg_path(ts, n_seg)
+        if path != want:
+            raise AssertionError(f"seg_bitmap took its {path} path where the "
+                                 f"rows call for {want}")
+        paths[path] += 1
+        sb_err = max(sb_err, max_abs_err([got],
                                          [SB.seg_bitmap_plain(ts, tk, n_seg)]))
 
     def words(n, w):
         return rng.integers(-2**31, 2**31, (n, w))
 
+    def rows_at(n, w, shift):
+        # n rows of w words starting `shift` words into a buffer on the card
+        return up(words(1, n * w + shift).ravel())[0][shift:].view(n, w)
+
     sig_cases = [(words(1000, 512), words(600, 512)),
                  (words(7, 512), words(40, 512)),
                  (words(33, 31), words(65, 31)), (words(1, 1), words(1, 1)),
                  (words(0, 8), words(5, 8)), (words(4, 0), words(3, 0))]
+    # both forms (8 x 40 and 300 x 200 below the threshold, 400 x 400
+    # above it) at word counts of every parity
+    sig_cases += [(words(na, w), words(nb, w)) for w in (1, 3, 5, 512)
+                  for na, nb in ((8, 40), (300, 200), (400, 400))]
     sp_err = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = {"warp": 0, "tiled": 0}
     for x, y in sig_cases:
         tx, ty = up(x, y)
+        forms[SP.form(len(x), len(y), sms)] += 1
+        sp_err = max(sp_err, max_abs_err([SP.summary_probe(tx, ty)],
+                                         [SP.summary_probe_plain(tx, ty)]))
+    # rows off a 16-byte boundary: one side shifted by a word, or both
+    shifted = [(na, nb, w, sa, sb) for w in (3, 5, 512)
+               for na, nb in ((8, 40), (400, 400))
+               for sa, sb in ((1, 0), (1, 1), (2, 3))]
+    for na, nb, w, sa, sb in shifted:
+        tx, ty = rows_at(na, w, sa), rows_at(nb, w, sb)
+        forms[SP.form(na, nb, sms)] += 1
         sp_err = max(sp_err, max_abs_err([SP.summary_probe(tx, ty)],
                                          [SP.summary_probe_plain(tx, ty)]))
     torch.cuda.synchronize()
@@ -468,8 +569,11 @@ def stats_kernel_cases(dev) -> dict:
                                 len(batches), "max_abs_err": si_err},
            "join_count": {"cases": len(lists), "segmented_cases":
                           len(batches), "max_abs_err": jc_err},
-           "seg_bitmap": {"cases": len(seg_cases), "max_abs_err": sb_err},
-           "summary_probe": {"cases": len(sig_cases), "max_abs_err": sp_err}}
+           "seg_bitmap": {"cases": len(seg_cases), "max_abs_err": sb_err,
+                          "ordered": paths["ordered"],
+                          "unordered": paths["unordered"]},
+           "summary_probe": {"cases": len(sig_cases) + len(shifted),
+                             "max_abs_err": sp_err, **forms}}
     for k, v in out.items():
         if v["max_abs_err"] != 0.0:
             raise AssertionError(f"{k} differs from its plain version: "
@@ -1158,6 +1262,99 @@ def _bytes_bound(nbytes: int) -> "tuple[float, str]":
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def _seg_bitmap_extra(seg, bucket, n_seg) -> dict:
+    """``seg_bitmap``'s shape, bound and library yardstick on one input:
+    every segment read, a bucket only where its row is in the plane, the
+    ``(n_seg, 128)`` float32 plane written once; ``torch.bincount`` over
+    the in-plane rows' cells, timed (``library_ms``) and returned as
+    ``library_out`` for the caller to hold against the kernel."""
+    import torch
+
+    ok = (seg >= 0) & (seg < n_seg)
+    n_ok = int(ok.sum())
+    key = (seg[ok].long() * 128 + bucket[ok].long()).contiguous()
+    lib = torch.bincount(key, minlength=n_seg * 128)
+    ms, lib_queued = queued_ms(
+        lambda: torch.bincount(key, minlength=n_seg * 128))
+    bound, by = _bytes_bound(4 * seg.shape[0] + 4 * n_ok + 4 * 128 * n_seg)
+    return {"shape": [seg.shape[0], n_seg], "rows_in_plane": n_ok,
+            "bound_ms": bound, "bound_by": by, "library_ms": ms,
+            "library_queued": lib_queued,
+            "library_out": lib.view(n_seg, 128).float()}
+
+
+def _probe_extra(a_sig, b_sig) -> dict:
+    """``summary_probe``'s shape, bound and form on one input: both
+    signature blocks read once, the int32 output written once."""
+    import torch
+
+    from repro_torch.kernels import summary_probe as SP
+
+    na, w = a_sig.shape
+    nb = b_sig.shape[0]
+    bound, by = _bytes_bound(4 * w * (na + nb) + 4 * na * nb)
+    sms = torch.cuda.get_device_properties(a_sig.device).multi_processor_count
+    return {"shape": [na, nb, w], "bound_ms": bound, "bound_by": by,
+            "form": SP.form(na, nb, sms)}
+
+
+class _Alg1Clock:
+    """Host time of ``compute_federated_cps_ops``'s parts while installed:
+    the signature probe calls (``_probe_ops``, each ending in its own copy
+    back), the export-pair building (``_export_pairs``), the exact checks
+    (``exact_check_segments``, the two segmented launches and
+    ``_segment_sums``, closed by a device synchronisation so that their
+    device time is theirs) and the CP tables (``_cp_rows``); the rest of
+    the call is the exports' upload, the copy back of each pair's counts
+    and the loop over the checks."""
+
+    def __init__(self):
+        from repro_torch.core import federation
+        from repro_torch.kernels import ops
+
+        self.sites = [(federation, "_probe_ops", "probe"),
+                      (federation, "_export_pairs", "pairs"),
+                      (federation, "exact_check_segments", "checks"),
+                      (ops, "intersect_counts", "checks"),
+                      (ops, "match_counts_segments", "checks"),
+                      (federation, "_segment_sums", "checks"),
+                      (federation, "_cp_rows", "cp_rows")]
+        self.secs = {k: 0.0 for _, _, k in self.sites}
+        self.calls = {k: 0 for _, _, k in self.sites}
+        self.saved = []
+
+    def _wrap(self, fn, part, sync):
+        import torch
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.secs[part] += time.perf_counter() - t0
+            self.calls[part] += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        for mod, attr, part in self.sites:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, part, attr == "_segment_sums"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+    def split(self, total: float) -> dict:
+        out = {f"{k}_s": v for k, v in self.secs.items()}
+        out["copy_back_and_rest_s"] = total - sum(self.secs.values())
+        out["total_s"] = total
+        out["probe_calls"] = self.calls["probe"]
+        return out
+
+
 def check_stats(state: dict) -> None:
     """Each statistics kernel against its plain version on its largest
     main-path input, with device times of both (``queued_ms``), the
@@ -1165,7 +1362,13 @@ def check_stats(state: dict) -> None:
     for ``seg_bitmap`` the one PyTorch call that computes the same counts
     (``torch.bincount``), timed as a yardstick only.  The list kernels'
     largest input is a source pair's segmented launch
-    (``check_exact_checks``)."""
+    (``check_exact_checks``).  Also timed, each against its plain version:
+    ``seg_bitmap`` on the main path's rows shuffled (``unordered``),
+    ``summary_probe`` on a 1000 x 600 block of 512 words (``large``), and
+    the launch floor, a queued ``torch.cuda._sleep(0)``
+    (``launch_floor_ms``); and a third Algorithm 1 call split on the host
+    clock (``algorithm1_split``, ``_Alg1Clock``)."""
+    import numpy as np
     import torch
 
     from repro_torch.core.federation import (compute_federated_cps,
@@ -1189,35 +1392,51 @@ def check_stats(state: dict) -> None:
                                      device=DEVICE)
     state["stats"]["algorithm1_warm_s"] = time.perf_counter() - t0
     _algorithm1_checks(stats, warm)
+    with _Alg1Clock() as clock:
+        t0 = time.perf_counter()
+        split = compute_federated_cps_ops(stats.exports, stats.summaries,
+                                          device=DEVICE)
+        total = time.perf_counter() - t0
+    _algorithm1_checks(stats, split)
+    state["stats"]["algorithm1_split"] = clock.split(total)
     keep = _largest_calls(stats, fed_cps, big_rows, torch.device(DEVICE))
     rows = check_exact_checks(stats, fed_cps)
+    seg, bucket, n_seg = keep["seg_bitmap"]
+    # the main path's rows shuffled: the same counts from rows in no order
+    g = torch.Generator(device=DEVICE).manual_seed(SHAPE_SEED)
+    perm = torch.randperm(seg.shape[0], generator=g, device=DEVICE)
+    unordered = (seg[perm].contiguous(), bucket[perm].contiguous(), n_seg)
+    rng = np.random.default_rng(SHAPE_SEED)
+    large = [torch.from_numpy(rng.integers(-2**31, 2**31, (n, 512)).astype(
+        np.int32)).to(DEVICE) for n in (1000, 600)]
     for name, kernel, plain in (
             ("seg_bitmap", SB.seg_bitmap, SB.seg_bitmap_plain),
             ("summary_probe", SP.summary_probe, SP.summary_probe_plain)):
         args = keep[name]
         row = _time_kernel(name, kernel, plain, args)
         if name == "seg_bitmap":
-            # every segment read, a bucket only where its row is in the
-            # plane, the (n_seg, 128) float32 plane written once
-            seg, bucket, n_seg = args
-            ok = (seg >= 0) & (seg < n_seg)
-            n_ok = int(ok.sum())
-            row.update(shape=[seg.shape[0], n_seg], rows_in_plane=n_ok)
-            row["bound_ms"], row["bound_by"] = _bytes_bound(
-                4 * seg.shape[0] + 4 * n_ok + 4 * 128 * n_seg)
-            key = (seg[ok].long() * 128 + bucket[ok].long()).contiguous()
-            lib = torch.bincount(key, minlength=n_seg * 128)
-            if not torch.equal(lib.view(n_seg, 128).float(), kernel(*args)):
+            row.update(_seg_bitmap_extra(*args))
+            if not torch.equal(row.pop("library_out"), kernel(*args)):
                 raise AssertionError("torch.bincount disagrees with seg_bitmap")
-            row["library_ms"], row["library_queued"] = queued_ms(
-                lambda: torch.bincount(key, minlength=n_seg * 128))
+            # the same rows in no order: the kernel's unordered path
+            row["unordered"] = _time_kernel(name, kernel, plain, unordered)
+            extra = _seg_bitmap_extra(*unordered)
+            extra.pop("library_out")
+            row["unordered"].update(extra)
+            for r, a in ((row, args), (row["unordered"], unordered)):
+                r["path"] = SB.seg_bitmap_path(*a)[1]
+                if r["path"] != seg_path(a[0], n_seg):
+                    raise AssertionError(f"seg_bitmap took its {r['path']} "
+                                         f"path on {seg_path(a[0], n_seg)} "
+                                         f"rows")
         else:
-            a_sig, b_sig = args
-            row["shape"] = [a_sig.shape[0], b_sig.shape[0], a_sig.shape[1]]
-            row["bound_ms"], row["bound_by"] = _bytes_bound(
-                4 * a_sig.shape[1] * (a_sig.shape[0] + b_sig.shape[0])
-                + 4 * a_sig.shape[0] * b_sig.shape[0])
+            row.update(_probe_extra(*args))
+            # a block above the form threshold (stats_kernel_cases' largest)
+            row["large"] = _time_kernel(name, kernel, plain, large)
+            row["large"].update(_probe_extra(*large))
         rows[name] = row
+    # the least time of a launch: a device sleep of 0 cycles, queued
+    rows["launch_floor_ms"], _ = queued_ms(lambda: torch.cuda._sleep(0))
     state["stats_kernels"] = rows
     emit("stats", nvidia_smi=state["smi"], **state["stats"], kernels=rows)
 
@@ -1675,6 +1894,23 @@ def _exp_shared_s(instr: int, exps: int) -> float:
                (1 - share) * exps / EXP_PER_S)
 
 
+def _second_input(st: dict, name: str) -> dict:
+    """The summary keys of ``seg_bitmap``'s path and unordered input, and of
+    ``summary_probe``'s form and large block (with the launch floor)."""
+    if name not in ("seg_bitmap", "summary_probe"):
+        return {}
+    key, how = (("unordered", "path") if name == "seg_bitmap"
+                else ("large", "form"))
+    row = st[name][key]
+    out = {how: st[name][how]}
+    out.update({f"{key}_{k}": row[k] for k in
+                ("shape", how, "max_abs_err", "kernel_ms", "plain_ms",
+                 "bound_ms", "library_ms")})
+    if name == "summary_probe":
+        out["launch_floor_ms"] = st["launch_floor_ms"]
+    return out
+
+
 def summary(state: dict) -> dict:
     ls = state["large_star"]
     sweep, sweep14 = ls["clique12"], ls["clique14"]
@@ -1719,7 +1955,8 @@ def summary(state: dict) -> dict:
              "single_list_ms": st[name]["single_list"]["kernel_ms"],
              "all_pairs_ms": st[name]["all_pairs"]["kernel_ms"],
              "all_pairs_bound_ms": st[name]["all_pairs"]["bound_ms"]}
-            if "all_pairs" in st[name] else {})}
+            if "all_pairs" in st[name] else {}),
+         **_second_input(st, name)}
         for name, replaces in STATS_KERNELS] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -3,13 +3,18 @@
 ``summary_probe`` returns the ``(nA, nB)`` int32 ``sum over words of
 popcount(a[i] & b[j])`` of int32 signature words; zero means the two
 signatures share no bit, so the (objects row, subjects row) pair cannot
-link.
+link.  Any extents, word counts of any parity and rows at any 4-byte
+boundary (a row slice of a larger block) are taken.
 
 The kernel, ``csrc/summary_probe.cu``, replaces the reference's Pallas
-``summary_probe`` (128 x 128 output tiles, SWAR popcount on the VPU): 32 x 32
-output tiles with the signature words staged in shared memory and
-``__popc``.  It is bound by bytes at the statistics' sizes.  No block
-padding: the kernel takes any extent.
+``summary_probe`` (128 x 128 output tiles, SWAR popcount on the VPU).  Its
+C entry picks one of two forms by shape (``form`` mirrors the rule): below
+one 32 x 32 tile per SM, every statistics-path call, one warp per output
+reads both rows with 16-byte loads in one round and sums ``__popc`` of
+the AND across its lanes, so the time is one round of load latency and the
+launch; above it, 32 x 32 output tiles walk the words through shared
+memory, bound by the popcounts.  Both write every output once, so the
+output comes from ``torch.empty``.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -17,10 +22,12 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 from repro_torch.kernels.build import P, I, check, launch, register, route
+from repro_torch.kernels.dp_layer import sm_count
 
-register("summary_probe", "summary_probe.cu", "summary_probe", [P] * 3 + [I] * 3)
+register("summary_probe", "summary_probe.cu", "summary_probe", [P] * 3 + [I] * 4)
 
 _PLAIN_CHUNK = 1 << 22        # (i, j, word) elements per step of the plain form
+_TILE = 32                    # the tiled form's output tile (csrc kTile)
 
 
 def _check_sigs(a_sig, b_sig):
@@ -43,11 +50,20 @@ def summary_probe(a_sig, b_sig):
         return summary_probe_plain(a_sig, b_sig)
     na, w = a_sig.shape
     nb = b_sig.shape[0]
-    out = torch.zeros((na, nb), dtype=torch.int32, device=dev)
-    if na and nb and w:
-        launch("summary_probe", a_sig.data_ptr(), b_sig.data_ptr(),
-               out.data_ptr(), na, nb, w)
+    if not (na and nb and w):
+        return torch.zeros((na, nb), dtype=torch.int32, device=dev)
+    out = torch.empty((na, nb), dtype=torch.int32, device=dev)
+    launch("summary_probe", a_sig.data_ptr(), b_sig.data_ptr(),
+           out.data_ptr(), na, nb, w, sm_count(dev))
     return out
+
+
+def form(na: int, nb: int, sms: int) -> str:
+    """The kernel's form for an ``(na, nb)`` output on a card of ``sms``
+    SMs, as its C entry picks it: ``"warp"`` below one 32 x 32 tile per
+    SM, else ``"tiled"``."""
+    tiles = -(-na // _TILE) * -(-nb // _TILE)
+    return "warp" if tiles < sms else "tiled"
 
 
 def popcount32(v):

@@ -371,6 +371,98 @@ def test_seg_bitmap_kernel_equals_plain(dev, n, n_seg):
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+def _seg_layout(case):
+    """Rows of one ``seg_bitmap`` layout and the path the kernel must take:
+    segment order with padding between the rows (the statistics path's
+    layout), one segment over several of the kernel's tiles, runs of
+    missing segments at the start, middle and end, rows past the plane and
+    buckets outside ``[0, 128)`` among ordered rows, no row in the plane,
+    one step back across two tiles, gaps of many missing ids, a long run
+    of padding, and rows in no order."""
+    rng = np.random.default_rng(len(case))
+    if case == "interspersed_pads":
+        seg = np.sort(rng.integers(0, 3000, 20_000))
+        seg[rng.random(20_000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 20_000), 3000, "ordered"
+    if case == "long_segment":
+        seg = np.sort(np.concatenate([rng.integers(0, 40, 3000),
+                                      np.full(5000, 17)]))
+        seg[rng.random(8000) < 0.2] = -1
+        return seg, rng.integers(0, 128, 8000), 40, "ordered"
+    if case == "gaps":                 # present: [700, 1500) and [3000, 3500)
+        seg = np.sort(np.concatenate([rng.integers(700, 1500, 6000),
+                                      rng.integers(3000, 3500, 4000)]))
+        seg[rng.random(10_000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 10_000), 5000, "ordered"
+    if case == "out_of_plane":
+        seg = np.sort(rng.integers(0, 2000, 12_000))
+        seg[rng.random(12_000) < 0.1] = -1
+        far = rng.random(12_000) < 0.05
+        seg[far] = rng.integers(2000, 2**31 - 1, int(far.sum()))
+        return seg, rng.integers(-3, 131, 12_000), 2000, "ordered"
+    if case == "pads_only":
+        return np.full(3000, -1), rng.integers(0, 128, 3000), 70, "unordered"
+    if case == "one_step_back":        # ordered but across two tiles
+        seg = np.sort(rng.integers(0, 3000, 20_000))
+        seg[SB.TILE_ROWS * 7] = seg[SB.TILE_ROWS * 7 - 1] - 1
+        return seg, rng.integers(0, 128, 20_000), 3000, "unordered"
+    if case == "sparse":               # gaps of 50,000 and more missing ids
+        seg = np.sort(np.concatenate([rng.integers(0, 100, 3000),
+                                      rng.integers(50_000, 50_100, 3000),
+                                      rng.integers(200_000, 200_050, 3000)]))
+        seg[rng.random(9000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 9000), 300_000, "ordered"
+    if case == "long_pad_run":         # 5,000 pads between two segments
+        seg = np.sort(rng.integers(0, 300, 8000))
+        seg[1000:6000] = -1
+        return seg, rng.integers(0, 128, 8000), 300, "ordered"
+    if case == "unordered":
+        return (rng.integers(-1, 3000, 20_000), rng.integers(0, 128, 20_000),
+                3000, "unordered")
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["interspersed_pads", "long_segment", "gaps",
+                                  "out_of_plane", "pads_only", "one_step_back",
+                                  "sparse", "long_pad_run", "unordered"])
+def test_seg_bitmap_kernel_layouts(dev, case):
+    seg, bucket, n_seg, path = _seg_layout(case)
+    ts, tk = _i32(dev, seg, bucket)
+    before = build.LAUNCHES["seg_bitmap"]
+    got, took = SB.seg_bitmap_path(ts, tk, n_seg)
+    assert build.LAUNCHES["seg_bitmap"] - before == 1
+    assert took == path
+    assert torch.equal(got, SB.seg_bitmap_plain(ts, tk, n_seg))
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 512])
+@pytest.mark.parametrize("na,nb,form", [(8, 40, "warp"), (300, 200, "warp"),
+                                        (400, 400, "tiled")])
+def test_summary_probe_kernel_forms(dev, na, nb, form, w):
+    assert SP.form(na, nb, K.sm_count(dev)) == form
+    rng = np.random.default_rng(na + nb + w)
+    ta, tb = _i32(dev, rng.integers(-2**31, 2**31, (na, w)),
+                  rng.integers(-2**31, 2**31, (nb, w)))
+    got, launched = _counted("summary_probe", SP.summary_probe, ta, tb)
+    assert launched == 1
+    assert torch.equal(got, SP.summary_probe_plain(ta, tb))
+
+
+@pytest.mark.parametrize("w", [3, 5, 512])
+@pytest.mark.parametrize("na,nb", [(8, 40), (400, 400)])
+@pytest.mark.parametrize("sa,sb", [(1, 0), (1, 1), (2, 3)])
+def test_summary_probe_kernel_rows_off_16_bytes(dev, na, nb, w, sa, sb):
+    """Row blocks that start ``sa`` and ``sb`` words into a buffer: no row,
+    or not both rows of a pair, on a 16-byte boundary."""
+    rng = np.random.default_rng(na * w + sa + 7 * sb)
+    bufa, bufb = _i32(dev, rng.integers(-2**31, 2**31, na * w + sa),
+                      rng.integers(-2**31, 2**31, nb * w + sb))
+    ta, tb = bufa[sa:].view(na, w), bufb[sb:].view(nb, w)
+    assert ta.data_ptr() % 16 and ta.is_contiguous()
+    got = SP.summary_probe(ta, tb)
+    assert torch.equal(got, SP.summary_probe_plain(ta, tb))
+
+
 @pytest.mark.parametrize("na,nb,w", [(1, 1, 1), (33, 65, 31), (7, 40, 512),
                                      (300, 200, 512), (0, 3, 8), (4, 3, 0)])
 def test_summary_probe_kernel_equals_plain(dev, na, nb, w):

@@ -113,10 +113,25 @@ def _seg_rows(case: str):
         return np.zeros(600), np.full(600, 7), 1
     if case == "single_row":
         return [4], [127], 5
+    if case == "interspersed_pads":  # the statistics path's layout
+        seg = np.sort(rng.integers(0, 300, 2000))
+        seg[rng.random(2000) < 0.3] = -1
+        return seg, rng.integers(0, 128, 2000), 300
+    if case == "gaps":               # missing segments at start, middle, end
+        seg = np.sort(np.concatenate([rng.integers(40, 90, 500),
+                                      rng.integers(150, 200, 400)]))
+        seg[rng.random(900) < 0.3] = -1
+        return seg, rng.integers(0, 128, 900), 260
+    if case == "long_segment":       # one segment of 5,000 rows
+        seg = np.sort(np.concatenate([rng.integers(0, 40, 600),
+                                      np.full(5000, 17)]))
+        seg[rng.random(5600) < 0.2] = -1
+        return seg, rng.integers(0, 128, 5600), 40
     raise KeyError(case)
 
 
-SEG_CASES = ["sorted_with_padding", "out_of_plane", "one_cell", "single_row"]
+SEG_CASES = ["sorted_with_padding", "out_of_plane", "one_cell", "single_row",
+             "interspersed_pads", "gaps", "long_segment"]
 
 
 @pytest.mark.parametrize("case", SEG_CASES)
@@ -130,6 +145,23 @@ def test_seg_bitmap_plain_matches_reference(case):
     np.testing.assert_array_equal(got.numpy(), oracle)
     np.testing.assert_array_equal(got.numpy() > 0,
                                   ref_ops.predicate_bitmaps(seg, bucket, n_seg))
+
+
+def test_seg_bitmap_path_on_the_cpu_is_the_plain_version():
+    seg, bucket, n_seg = _seg_rows("interspersed_pads")
+    ts, tk = _t(seg), _t(bucket)
+    got, path = SB.seg_bitmap_path(ts, tk, n_seg)
+    assert path is None
+    assert torch.equal(got, SB.seg_bitmap_plain(ts, tk, n_seg))
+
+
+@pytest.mark.parametrize("na,nb,sms,form", [
+    (8, 40, 132, "warp"), (300, 200, 132, "warp"), (352, 384, 132, "tiled"),
+    (1000, 600, 132, "tiled"), (1, 1, 1, "tiled"), (33, 33, 5, "warp")])
+def test_summary_probe_form_threshold(na, nb, sms, form):
+    """The warp form below one 32 x 32 output tile per SM: 352 x 384 makes
+    11 x 12 = 132 tiles, so it tiles on the H100's 132 SMs."""
+    assert SP.form(na, nb, sms) == form
 
 
 def test_seg_bitmap_plain_empty_rows_and_plane():
