@@ -20,9 +20,28 @@ Each phase prints one JSON line:
                 ``summary_probe`` in both its forms and on rows off a
                 16-byte boundary);
 ``fedbench``    FedBench-like federation at scale 1.0: statistics, planning
-                with the default optimizer (torch DP on cuda), execution;
-                answers equal ``naive_evaluate`` and plans equal the numpy
-                DP backend's;
+                with the default optimizer (torch DP on cuda), execution
+                through the operator pipeline; answers equal
+                ``naive_evaluate``, plans equal the numpy DP backend's, and
+                rows and metrics equal the recursive evaluator's (timed
+                beside it);
+``query_serve`` the reference's query-serving scenario
+                (``benchmarks/serve_bench.py``) on the ``fedbench`` phase's
+                federation and statistics: 96 instances of its 6-8-star
+                subject-bound chain templates (each template kept when its
+                first instance's execution makes no more endpoint scans
+                than it has triple patterns), planned by the numpy backend
+                in an ``optimize`` loop (the oracle) and on the card in
+                ``optimize_batch`` calls of 16, every plan equal to the
+                oracle's; then the same open-loop trace served twice on the
+                card by ``QueryServeEngine``, arrival-order drain
+                (synchronous) and affinity admission with the planner
+                thread, rows byte-equal between the runs and answers equal
+                to ``naive_evaluate``; outside the counted window each
+                run's batches replayed on the card and on the numpy
+                backend, one batch split on the host clock, and
+                ``dp_sweep`` at the largest stacked group against its
+                plain version;
 ``large_star``  the four large-star DP sweeps (12-clique B=8 and 14-clique
                 B=1 resident, 20-chain B=4 and 16-tree B=8 tiled), trees
                 equal the numpy backend's, with device timings;
@@ -62,14 +81,16 @@ Each phase prints one JSON line:
                 device times, bounds and a library yardstick; the scan also
                 at the longest prompt.
 
-The main paths are ``fedbench``, ``large_star`` and ``stats`` running once,
-then ``lm``, each window with the launch counts set to 0 just before and
-read just after; the plan comparisons with the numpy backend, the kernel
-checks and all timings run outside those windows, so their own launches are
-not counted.  Then the card's name and power limit, one JSON line with every
+The main paths are ``fedbench``, ``query_serve``, ``large_star`` and
+``stats`` running once, then ``lm``, each window with the launch counts set
+to 0 just before and read just after; the kernel checks, all timings and
+the plan comparisons with the numpy backend (but ``query_serve``'s, which
+launch nothing) run outside those windows, so their own launches are not
+counted.  Then the card's name and power limit, one JSON line with every
 kernel's launches on the main paths, error against its plain version, time
-and bound (``dp_sweep`` at clique12 with clique14's times beside it,
-``dp_layer`` twice, at the largest tile of each tiled cell), and
+and bound (``dp_sweep`` at clique12 with clique14's and the serving path's
+largest group's times beside it, ``dp_layer`` twice, at the largest tile of
+each tiled cell), and
 last ``{"ok": true, "device": ...}``.
 No phase catches its own failure: any failure exits non-zero.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -628,6 +649,7 @@ def phase_fedbench(state: dict) -> None:
     if delta["resident"] + delta["tiled"] == 0:
         raise AssertionError("no FedBench query reached the device DP")
     state["fedbench_run"] = (stats, queries, opt, plans)
+    state["fedbench_fs"] = (fed, stats)
     state["fedbench"] = dict(
         sources=len(fed.sources), triples=fed.total_triples(),
         queries=len(queries), answers=answers, ntt=ntt, sweeps=delta,
@@ -643,8 +665,27 @@ def check_fedbench(state: dict) -> None:
     from repro_torch.core.decomposition import decompose
     from repro_torch.core.planner import OdysseyOptimizer
     from repro_torch.core.source_selection import select_sources
+    from repro_torch.engine.local import LocalEngine
 
     stats, queries, opt, plans = state.pop("fedbench_run")
+    # the recursive evaluator (the pipeline's oracle) on the same plans:
+    # equal rows and metrics, and its time beside the pipeline's
+    fed = state["fedbench_fs"][0]
+    eng = LocalEngine(fed)
+    t_rec = 0.0
+    for q, plan in zip(queries, plans):
+        t1 = time.perf_counter()
+        rec = eng.execute_recursive(plan)
+        t_rec += time.perf_counter() - t1
+        res = eng.execute(plan)
+        if list(res.rows) != list(rec.rows) or any(
+                res.rows[v].tobytes() != rec.rows[v].tobytes()
+                for v in res.rows) or (
+                res.metrics.transferred_tuples, res.metrics.requests) != (
+                rec.metrics.transferred_tuples, rec.metrics.requests):
+            raise AssertionError(f"{q.name}: the pipeline differs from the "
+                                 f"recursive evaluator")
+    state["fedbench"]["exec_recursive_s"] = t_rec
     opt_np = OdysseyOptimizer(stats, dp_backend="numpy")
     for q, plan in zip(queries, plans):
         if plan.root != opt_np.optimize(q).root:
@@ -659,27 +700,552 @@ def check_fedbench(state: dict) -> None:
 
 class _Recorder:
     """Wraps the kernel wrappers the planner calls to keep their inputs, for
-    replays outside the counted window."""
+    replays outside the counted window: each ``dp_sweep`` call with the
+    schedule ``_resident_sweep`` handed it, each ``dp_layer`` tile."""
 
-    def __init__(self, K):
-        self.K = K
-        self.real = (K.dp_sweep, K.dp_layer)
+    def __init__(self, K, jo):
+        self.K, self.jo = K, jo
+        self.real = (K.dp_sweep, K.dp_layer, jo._resident_sweep)
         self.sweeps: list = []
         self.tiles: list = []
+        self._sched = None
 
     def install(self) -> None:
         self.K.dp_sweep, self.K.dp_layer = self._sweep, self._layer
+        self.jo._resident_sweep = self._resident
 
     def remove(self) -> None:
-        self.K.dp_sweep, self.K.dp_layer = self.real
+        self.K.dp_sweep, self.K.dp_layer, self.jo._resident_sweep = self.real
+
+    def _resident(self, sched, *args, **kw):
+        self._sched = sched
+        return self.real[2](sched, *args, **kw)
 
     def _sweep(self, *args, **kw):
-        self.sweeps.append((args, kw))
+        self.sweeps.append((self._sched, args, kw))
         return self.real[0](*args, **kw)
 
     def _layer(self, *args):
         self.tiles.append(args)
         return self.real[1](*args)
+
+
+# ---------------------------------------------------------------------------
+# query serving: the reference's serving scenario (benchmarks/serve_bench.py)
+# ---------------------------------------------------------------------------
+
+SERVE_N = 96                  # serve_bench.N_QUICK
+SERVE_MAX_BATCH = 16          # serve_bench.MAX_BATCH
+SERVE_TEMPLATES = ((7, 702), (8, 801), (8, 803), (6, 605), (7, 704),
+                   (7, 706), (6, 601), (7, 701))     # serve_bench.TEMPLATES
+SERVE_VARIANTS = 16           # serve_bench.VARIANTS_PER_TEMPLATE
+SERVE_HANDOFF = 32
+
+
+def _chain_query(stats, n_stars: int, k_extra: int, rng):
+    """Chain of ``n_stars`` star meta-nodes linked via CP-backed predicates
+    (a copy of ``benchmarks/planner_bench.py::chain_query`` over the port's
+    types)."""
+    from repro_torch.query.algebra import BGPQuery, Const, TriplePattern, Var
+
+    pats = []
+    cur = int(rng.integers(len(stats.cs)))
+    last_cs = 0
+
+    def outgoing(src: int):
+        out = [(stats.intra_cp[src], src)] if stats.intra_cp[src].n_cp else []
+        for (a, b), fcp in stats.fed_cp.items():
+            if a == src and fcp.n_cp:
+                out.append((fcp, b))
+        return out
+
+    for i in range(n_stars - 1):
+        cand = outgoing(cur)
+        if not cand:
+            starts = [s for s in range(len(stats.cs)) if outgoing(s)]
+            if not starts:
+                raise RuntimeError("federation has no CP-linked sources")
+            cur = starts[int(rng.integers(len(starts)))]
+            cand = outgoing(cur)
+        cp, nxt = cand[int(rng.integers(len(cand)))]
+        r = int(rng.integers(cp.n_cp))
+        pred, cs1, cs2 = int(cp.pred[r]), int(cp.cs1[r]), int(cp.cs2[r])
+        extras = [int(p) for p in stats.cs[cur].preds_of(cs1) if int(p) != pred]
+        rng.shuffle(extras)
+        for j, p in enumerate(extras[:k_extra]):
+            pats.append(TriplePattern(Var(f"x{i}"), Const(p), Var(f"x{i}_v{j}")))
+        pats.append(TriplePattern(Var(f"x{i}"), Const(pred), Var(f"x{i + 1}")))
+        cur, last_cs = nxt, cs2
+    extras = [int(p) for p in stats.cs[cur].preds_of(last_cs)]
+    for j, p in enumerate(extras[:k_extra]):
+        pats.append(TriplePattern(Var(f"x{n_stars - 1}"), Const(p),
+                                  Var(f"x{n_stars - 1}_v{j}")))
+    return BGPQuery(pats, distinct=True, projection=["x0"],
+                    name=f"CH{n_stars}")
+
+
+def _planner_query(stats, n_stars: int, seed: int, k_extra: int = 3):
+    """A chain query whose stars all survive source selection
+    (``planner_bench.planner_query``)."""
+    import numpy as np
+
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.core.source_selection import select_sources
+
+    rng = np.random.default_rng(seed)
+    for _ in range(80):
+        q = _chain_query(stats, n_stars, k_extra, rng)
+        graph = decompose(q)
+        sel = select_sources(graph, stats)
+        if len(graph.stars) == n_stars and all(len(s) for s in sel.star_sources):
+            return q
+    return q
+
+
+def _object_variants(q, fed, k: int) -> list:
+    """``k`` instances of ``q`` differing only in a constant object bound to
+    a non-link pattern (``planner_bench.object_variants``)."""
+    import numpy as np
+
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.query.algebra import BGPQuery, Const, TriplePattern, Var
+
+    g = decompose(q)
+    structural = {e.var for e in g.edges if e.var}
+    structural |= {s.subject.name for s in g.stars if isinstance(s.subject, Var)}
+    structural |= set(q.projection)
+    for star in reversed(g.stars):
+        for tp in star.patterns:
+            if isinstance(tp.p, Const) and isinstance(tp.o, Var) \
+                    and tp.o.name not in structural \
+                    and not any(e.pattern is tp for e in g.edges):
+                objs = sorted({int(o) for src in fed.sources for o in
+                               np.unique(src.table.o[src.table.p == tp.p.tid])})
+                if len(objs) >= 2:
+                    return [BGPQuery([TriplePattern(p.s, p.p,
+                                                    Const(objs[j % len(objs)])
+                                                    if p is tp else p.o)
+                                      for p in q.patterns], distinct=q.distinct,
+                                     projection=q.projection,
+                                     name=f"{q.name}o{j}")
+                            for j in range(k)]
+    return []
+
+
+def _subject_variants(q, fed, k: int) -> list:
+    """``k`` instances of ``q`` with the first star's subject bound to
+    different entities (``planner_bench.subject_variants``)."""
+    import numpy as np
+
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.query.algebra import BGPQuery, Const, TriplePattern, Var
+
+    g = decompose(q)
+    star = g.stars[0]
+    if not isinstance(star.subject, Var):
+        return []
+    name = star.subject.name
+    if any(isinstance(tp.o, Var) and tp.o.name == name
+           for st in g.stars for tp in st.patterns):
+        return []
+    proj = [v for v in q.projection if v != name] or \
+        [v for s in g.stars[1:] if isinstance(s.subject, Var)
+         for v in (s.subject.name,)][:1]
+    if not proj:
+        return []
+    preds = set(star.bound_preds())
+    out: list = []
+    seen: set = set()
+    for src in fed.sources:
+        t = src.table
+        for sid in np.unique(t.s):
+            sid = int(sid)
+            if sid not in seen and preds <= set(t.p[t.s == sid].tolist()):
+                seen.add(sid)
+                pats = [TriplePattern(Const(sid) if isinstance(p.s, Var)
+                                      and p.s.name == name else p.s, p.p, p.o)
+                        for p in q.patterns]
+                out.append(BGPQuery(pats, distinct=q.distinct, projection=proj,
+                                    name=f"{q.name}s{sid}"))
+                if len(out) >= k:
+                    return out
+    return out
+
+
+def serve_workload(stats, fed, size: int, seed: int = 23):
+    """The reference's templated, planning-bound serving mix
+    (``serve_bench.serve_workload``): subject-bound large-star chains served
+    as object-constant instances, shuffled, the first few repeated verbatim.
+    The reference keeps a template when its first instance executes within
+    half its planning time, a clock test; this copy keeps it when that
+    instance's execution (the operator pipeline, planned on the numpy
+    backend) makes no more physical endpoint scans than the query has triple
+    patterns, i.e. no bind-join fan-out, so every machine serves the same
+    wave.  Returns the wave and one row per probed template."""
+    import numpy as np
+
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.engine.pipeline import compile_plan
+
+    opt = OdysseyOptimizer(stats, plan_cache_size=0, dp_backend="numpy")
+    kept, probed, rows = [], [], []
+    for stars, tseed in SERVE_TEMPLATES:
+        q = _planner_query(stats, stars, seed=tseed, k_extra=3)
+        bound = _subject_variants(q, fed, 2)
+        variants = _object_variants(bound[0] if bound else q, fed,
+                                    SERVE_VARIANTS)
+        if len(variants) < 2:
+            rows.append({"template": [stars, tseed], "variants": 0})
+            continue
+        ex = compile_plan(opt.optimize(variants[0]), fed)
+        ex.run()
+        keep = ex.physical_scans <= len(variants[0].patterns)
+        probed.append(variants)
+        if keep:
+            kept.append(variants)
+        rows.append({"template": [stars, tseed], "name": variants[0].name,
+                     "patterns": len(variants[0].patterns),
+                     "variants": len(variants),
+                     "physical_scans": ex.physical_scans,
+                     "physical_tuples": ex.physical_tuples, "kept": keep})
+        if len(kept) * SERVE_VARIANTS >= size:
+            break
+    if len(kept) < 3:
+        kept = probed
+    wave = [v for variants in kept for v in variants]
+    wave += wave[: max(size // 12, 1)]
+    base = list(wave)
+    while len(wave) < size:
+        wave.append(base[len(wave) % len(base)])
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(wave))
+    return [wave[i] for i in order][:size], rows
+
+
+def _poisson_offsets(n: int, window_s: float, seed: int = 29):
+    """Cumulative open-loop arrival offsets covering about ``window_s``
+    seconds (``serve_bench.poisson_offsets``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(scale=1.0, size=n)
+    return np.cumsum(gaps) * (window_s / max(float(gaps.sum()), 1e-9))
+
+
+def _serve_trace(eng, wave, offsets, service):
+    """Drive one engine through the open-loop arrival trace
+    (``serve_bench._serve_trace``): a submitter thread pins each ``submit``
+    to its offset; this thread repeats ``service(eng)`` until everything
+    completes.  Returns (requests, wall seconds)."""
+    import threading
+
+    t0 = time.perf_counter()
+
+    def arrivals():
+        for q, off in zip(wave, offsets):
+            lag = off - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            eng.submit(q)
+
+    sub = threading.Thread(target=arrivals, name="chip-smoke-arrivals")
+    sub.start()
+    done = []
+    while sub.is_alive() or len(done) < len(wave):
+        got = service(eng)
+        done.extend(got)
+        if not got:
+            time.sleep(0.0005)
+    sub.join()
+    done.extend(eng.drain())
+    return done, time.perf_counter() - t0
+
+
+def same_plan(a, b, name: str) -> None:
+    """Two physical plans equal node for node (exact floats), with the same
+    selection, epoch and cache flag."""
+    if (a.root != b.root or a.selection.star_sources != b.selection.star_sources
+            or a.stats_epoch != b.stats_epoch or a.cached != b.cached
+            or a.fallback != b.fallback):
+        raise AssertionError(f"{name}: plan differs from the numpy backend's")
+
+
+def _recording(eng, log: list):
+    """Wrap ``eng._plan_batch`` to log each planned batch: its request ids
+    and the planning time the engine charged it."""
+    real = eng._plan_batch
+
+    def plan_batch(batch):
+        before = eng.serve_stats.plan_ms
+        real(batch)
+        log.append(([r.qid for r in batch], eng.serve_stats.plan_ms - before))
+    eng._plan_batch = plan_batch
+
+
+def _pct(xs, p: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, float), p))
+
+
+def phase_query_serve(state: dict) -> None:
+    """The main path of query serving on FedBench scale 1.0 (the
+    ``fedbench`` phase's federation and statistics): the reference's
+    serving wave planned with the numpy backend in an ``optimize`` loop (the
+    oracle), then on the card in ``optimize_batch`` calls of 16, every plan
+    held to the oracle's; then the same open-loop trace served twice on the
+    card, arrival-order drain (synchronous) and affinity admission with the
+    background planner.  Answers and timings are checked in
+    ``check_query_serve``, outside the counted window."""
+    import dataclasses
+
+    from repro_torch.core import join_order as jo
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.kernels import dp_layer as K
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve import QueryServeEngine
+
+    fed, stats = state["fedbench_fs"]
+    t0 = time.perf_counter()
+    wave, templates = serve_workload(stats, fed, SERVE_N)
+    setup_s = time.perf_counter() - t0
+    if len(wave) != SERVE_N:
+        raise AssertionError(f"{len(wave)} queries, expected {SERVE_N}")
+
+    opt_np = OdysseyOptimizer(stats, dp_backend="numpy")
+    t0 = time.perf_counter()
+    oracle = [opt_np.optimize(q) for q in wave]
+    loop_ms = (time.perf_counter() - t0) * 1e3
+
+    rec = _Recorder(K, jo)
+    rec.install()
+    try:
+        opt = OdysseyOptimizer(stats)                  # torch DP on cuda
+        if (opt.dp_backend, opt.device) != ("torch", DEVICE):
+            raise AssertionError("the default optimizer must run on cuda")
+        batches = []
+        for i in range(0, len(wave), SERVE_MAX_BATCH):
+            part = wave[i:i + SERVE_MAX_BATCH]
+            l0 = LAUNCHES["dp_sweep"]
+            t0 = time.perf_counter()
+            plans = opt.optimize_batch(part)
+            ms = (time.perf_counter() - t0) * 1e3
+            for j, p in enumerate(plans):
+                same_plan(p, oracle[i + j], part[j].name)
+            rep = dataclasses.asdict(opt.last_batch_report)
+            batches.append({"plan_ms": ms,
+                            "dp_sweep_launches": LAUNCHES["dp_sweep"] - l0,
+                            "report": rep})
+    finally:
+        rec.remove()
+    batch_launches = sum(b["dp_sweep_launches"] for b in batches)
+    if batch_launches == 0:
+        raise AssertionError("optimize_batch never launched dp_sweep")
+
+    # overload calibration as in the reference: the whole wave planned as
+    # one batch bounds the server's best-case planning; arrivals land in
+    # 1.5x that window, and admission may hold a request 0.4x of it
+    t0 = time.perf_counter()
+    OdysseyOptimizer(stats, plan_cache_size=0).optimize_batch(wave)
+    window_s = (time.perf_counter() - t0) * 1.5
+    slo_s = window_s * 0.4
+    offsets = _poisson_offsets(len(wave), window_s)
+
+    runs = {}
+    for name, kw, service in (
+            ("arrival_drain", {"admission": "arrival"}, lambda e: e.drain()),
+            ("affinity_pipeline", {"admission": "affinity", "pipeline": True,
+                                   "handoff_depth": SERVE_HANDOFF},
+             lambda e: e.poll())):
+        l0 = LAUNCHES["dp_sweep"]
+        eng = QueryServeEngine(fed, stats, max_batch=SERVE_MAX_BATCH,
+                               default_slo_ms=slo_s * 1e3, **kw)
+        if (eng.optimizer.dp_backend, eng.optimizer.device) != ("torch",
+                                                                DEVICE):
+            raise AssertionError("QueryServeEngine must plan on cuda")
+        log: list = []
+        _recording(eng, log)
+        try:
+            done, wall = _serve_trace(eng, wave, offsets, service)
+        finally:
+            eng.close()
+        launches = LAUNCHES["dp_sweep"] - l0       # read after close
+        if sorted(r.qid for r in done) != list(range(len(wave))):
+            raise AssertionError(f"{name}: {len(done)} of {len(wave)} served")
+        if launches == 0:
+            raise AssertionError(f"{name}: dp_sweep never launched")
+        st = eng.serve_stats
+        lat = [r.planning_latency_s() * 1e3 for r in done]
+        runs[name] = {"done": {r.qid: r for r in done}, "batches": log,
+                      "row": {"wall_s": wall, "qps": len(wave) / wall,
+                              "plan_latency_p50_ms": _pct(lat, 50),
+                              "plan_latency_p99_ms": _pct(lat, 99),
+                              "full_flushes": st.n_full_flushes,
+                              "deadline_flushes": st.n_deadline_flushes,
+                              "forced_flushes": st.n_forced_flushes,
+                              "batches": st.n_steps,
+                              "plan_ms": st.plan_ms, "exec_ms": st.exec_ms,
+                              "plan_ms_per_batch": st.plan_ms / st.n_steps,
+                              "plan_cache_hits": st.plan_cache_hits,
+                              "planned": st.n_planned, "shapes": st.n_shapes,
+                              "dp_sweep_launches": launches}}
+    state["query_serve_run"] = (wave, oracle, rec, runs)
+    state["query_serve"] = dict(
+        queries=len(wave), distinct=len({id(q) for q in wave}),
+        max_batch=SERVE_MAX_BATCH, templates=templates, setup_s=setup_s,
+        numpy_loop_ms=loop_ms, optimize_batch=batches,
+        optimize_batch_dp_sweep_launches=batch_launches,
+        window_s=window_s, slo_ms=slo_s * 1e3,
+        runs={k: v["row"] for k, v in runs.items()})
+
+
+def _replay_plan_ms(stats, wave, cuts, backend: str) -> list:
+    """Host time of each batch of ``cuts`` (lists of request ids) planned
+    again, in order, by one fresh optimizer on ``backend``."""
+    from repro_torch.core.planner import OdysseyOptimizer
+
+    opt = OdysseyOptimizer(stats, dp_backend=backend)
+    out = []
+    for qids in cuts:
+        t0 = time.perf_counter()
+        opt.optimize_batch([wave[i] for i in qids])
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _batch_split(stats, batch, reps: int = 5) -> dict:
+    """Host clock over one card ``optimize_batch`` call (fresh optimizer,
+    cold plan cache), split four ways: the ``dp_sweep`` calls closed by a
+    sync, the rest of ``_resident_sweep`` (seed math, uploads, copy back,
+    merge), the rest of ``dp_join_order_batch`` (statistics and the host
+    sweep around the kernel), and the rest of ``plan_batch`` (signatures,
+    decomposition, source selection, emission).  Medians over ``reps``
+    calls, in ms."""
+    import torch
+
+    from repro_torch.core import batch_planner as bp
+    from repro_torch.core import join_order as jo
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.kernels import dp_layer as K
+
+    real = (K.dp_sweep, jo._resident_sweep, bp.dp_join_order_batch)
+    clock = {}
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            clock[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    runs = []
+    K.dp_sweep = timed("sweep", real[0], sync=True)
+    jo._resident_sweep = timed("resident", real[1])
+    bp.dp_join_order_batch = timed("dp", real[2])
+    try:
+        for _ in range(reps):
+            clock.update(sweep=0.0, resident=0.0, dp=0.0)
+            opt = OdysseyOptimizer(stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.optimize_batch(batch)
+            total = time.perf_counter() - t0
+            runs.append((clock["sweep"], clock["resident"] - clock["sweep"],
+                         clock["dp"] - clock["resident"],
+                         total - clock["dp"], total))
+    finally:
+        K.dp_sweep, jo._resident_sweep, bp.dp_join_order_batch = real
+    return {k: statistics.median(r[i] for r in runs) * 1e3 for i, k in
+            enumerate(("dp_sweep_calls_ms", "seed_and_merge_ms",
+                       "rest_of_dp_ms", "rest_of_plan_batch_ms",
+                       "total_ms"))}
+
+
+def check_query_serve(state: dict) -> None:
+    """Outside the counted window: per request, rows byte-equal between the
+    two serving runs and answers equal to ``naive_evaluate`` for every
+    distinct query; each run's batches replayed on fresh optimizers, card
+    against the numpy backend; one batch split on the host clock; and
+    ``dp_sweep`` at the serving path's largest stacked group against its
+    plain version, timed with ``queued_ms`` beside its bytes bound."""
+    from repro_torch.engine.local import naive_evaluate
+    from repro_torch.kernels import dp_layer as K
+
+    fed, stats = state["fedbench_fs"]
+    wave, oracle, rec, runs = state.pop("query_serve_run")
+    a, b = runs["arrival_drain"]["done"], runs["affinity_pipeline"]["done"]
+    answers = {}
+    nonempty = 0
+    for qid, q in enumerate(wave):
+        ra, rb = a[qid], b[qid]
+        if list(ra.rows) != list(rb.rows):
+            raise AssertionError(f"qid {qid}: columns differ between runs")
+        for v in ra.rows:
+            if ra.rows[v].tobytes() != rb.rows[v].tobytes():
+                raise AssertionError(f"qid {qid}: scheduling changed rows")
+        if any(getattr(ra.metrics, m) != getattr(rb.metrics, m) for m in
+               ("transferred_tuples", "requests", "intermediate_rows")):
+            raise AssertionError(f"qid {qid}: scheduling changed metrics")
+        if id(q) not in answers:
+            answers[id(q)] = naive_evaluate(fed, q)
+        proj = q.effective_projection()
+        n = len(next(iter(ra.rows.values()))) if ra.rows else 0
+        got = set(zip(*[ra.rows[v].tolist() for v in proj])) if n else set()
+        if got != answers[id(q)]:
+            raise AssertionError(f"qid {qid} ({q.name}): answers differ "
+                                 f"from the oracle")
+        nonempty += bool(got)
+
+    for name, run in runs.items():
+        cuts = [qids for qids, _ in run["batches"]]
+        card = _replay_plan_ms(stats, wave, cuts, "torch")
+        host = _replay_plan_ms(stats, wave, cuts, "numpy")
+        run["row"].update(
+            served_plan_ms=[ms for _, ms in run["batches"]],
+            replay_plan_ms=card, replay_numpy_plan_ms=host,
+            replay_plan_ms_per_batch=sum(card) / len(card),
+            replay_numpy_plan_ms_per_batch=sum(host) / len(host),
+            replay_plan_ms_median=statistics.median(card),
+            replay_numpy_plan_ms_median=statistics.median(host))
+    first = [wave[i] for i in runs["arrival_drain"]["batches"][0][0]]
+    split = _batch_split(stats, first)
+
+    # the largest stacked group of the main path: most members, then most
+    # stars
+    sched, args, kw = max(rec.sweeps, key=lambda c: (c[1][5].shape[0],
+                                                     c[0].n))
+    B, n = args[5].shape[0], sched.n
+    want = K.dp_sweep_plain(*args)
+    err = max_abs_err(K.dp_sweep(*args, **kw), want)
+    if err != 0.0:
+        raise AssertionError(f"dp_sweep at the serving group differs from "
+                             f"its plain version: {err}")
+    kms, queued = queued_ms(lambda: K.dp_sweep(*args, **kw))
+    if not queued:
+        raise AssertionError("dp_sweep at the serving group: the host could "
+                             "not queue the calls")
+    pms, plain_queued = queued_ms(lambda: K.dp_sweep_plain(*args), k=3)
+    bound, by = sweep_bound(sched, B, 1 << n)
+    sizes = sorted({(c[1][5].shape[0], c[0].n) for c in rec.sweeps})
+    state["query_serve_sweep"] = {
+        "B": B, "n": n, "pairs": sched.n_pairs, "max_abs_err": err,
+        "kernel_ms": kms, "plain_ms": pms, "plain_queued": plain_queued,
+        "call_ms": cuda_ms(lambda: K.dp_sweep(*args, **kw)),
+        "bound_ms": bound, "bound_by": by,
+        "sweeps_recorded": len(rec.sweeps),
+        "group_shapes": [list(s) for s in sizes]}
+    out = state["query_serve"]
+    for name, run in runs.items():
+        out["runs"][name] = run["row"]
+    emit("query_serve", nvidia_smi=state["smi"], **out,
+         nonempty_answers=nonempty, distinct_checked=len(answers),
+         host_split_first_batch=split,
+         dp_sweep_largest_group=state["query_serve_sweep"])
+
+
 
 
 def _plan_large_star(case, backend: str = "torch"):
@@ -785,7 +1351,7 @@ def phase_large_star(state: dict) -> None:
     runs = []
     for case in cases:
         shape, n, B, mode = case[:4]
-        rec = _Recorder(K)
+        rec = _Recorder(K, jo)
         rec.install()
         before = dict(jo.DP_SWEEP_COUNTERS)
         l0 = dict(LAUNCHES)
@@ -819,12 +1385,11 @@ def check_large_star(state: dict) -> None:
     (``_resident_split``)."""
     import torch
 
-    from repro_torch.core import join_order as jo
     from repro_torch.kernels import dp_layer as K
 
     rows = []
     for case, trees, rec, launches in state.pop("large_star_runs"):
-        shape, n, B, mode, g = case[:5]
+        shape, n, B, mode = case[:4]
         trees_np = _plan_large_star(case, "numpy")
         for b, (t_dev, t_np) in enumerate(zip(trees, trees_np)):
             same_tree(t_dev, t_np, f"{shape}{n}[{b}]")
@@ -840,8 +1405,7 @@ def check_large_star(state: dict) -> None:
                "plan_ms": sweep_ms, "numpy_plan_ms": numpy_ms,
                "launches": launches, "peak_device_bytes": peak}
         if mode == "resident":
-            args, work = rec.sweeps[0]
-            sched = jo._dp_schedule(g, jo.DP_BLOCK_BYTES, B)
+            sched, args, work = rec.sweeps[0]
             # device time of calls queued back to back, and one call timed
             # with CUDA events (which carries the wrapper's host work)
             kms, queued = queued_ms(lambda: K.dp_sweep(*args, **work))
@@ -1921,14 +2485,18 @@ def summary(state: dict) -> dict:
          "source": "src/repro_torch/kernels/csrc/dp_sweep.cu",
          "replaces": "src/repro/kernels/dp_layer.py:267",
          "launches": state["main_launches"]["dp_sweep"],
-         "max_abs_err": max(err["dp_sweep"], sweep["max_abs_err"]),
+         "max_abs_err": max(err["dp_sweep"], sweep["max_abs_err"],
+                            state["query_serve_sweep"]["max_abs_err"]),
          "ms": sweep["kernel_ms"], "plain_ms": sweep["plain_ms"],
          "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
          "library_ms": None, "call_ms": sweep["call_ms"],
          "clique14_ms": sweep14["kernel_ms"],
          "clique14_plain_ms": sweep14["plain_ms"],
          "clique14_bound_ms": sweep14["bound_ms"],
-         "clique14_call_ms": sweep14["call_ms"]},
+         "clique14_call_ms": sweep14["call_ms"],
+         **{f"query_serve_{k}": v for k, v in state["query_serve_sweep"].items()
+            if k in ("B", "n", "kernel_ms", "plain_ms", "call_ms", "bound_ms",
+                     "bound_by", "max_abs_err")}},
     ] + [
         # one entry per tiled cell, at its largest tile; launches are the
         # cell's own on the main path (the two sum to the kernel's count)
@@ -1997,10 +2565,12 @@ def main() -> int:
     for k in jo.DP_SWEEP_COUNTERS:
         jo.DP_SWEEP_COUNTERS[k] = 0
     phase_fedbench(state)
+    phase_query_serve(state)
     phase_large_star(state)
     phase_stats(state)
     launches = dict(build.LAUNCHES)
     check_fedbench(state)
+    check_query_serve(state)
     check_large_star(state)
     check_stats(state)
     build.reset_launches()

@@ -19,8 +19,10 @@ Serving-scale additions on top of the paper:
   ``add_source`` / ``refresh_source``) is a miss — the stale entry is
   lazily evicted and the structure-only signature re-warms naturally.
 
-The reference package's batched ``optimize_batch`` (``batch_planner``) is
-not ported yet.
+* **Batched planning** — ``optimize_batch`` plans a batch through
+  ``repro_torch.core.batch_planner``: one epoch snapshot, shared source
+  selection and one stacked DP sweep per structural shape, bit-identical
+  per query to the ``optimize`` loop.
 """
 from __future__ import annotations
 
@@ -434,6 +436,8 @@ class OdysseyOptimizer:
                              f"(expected one of {DP_BACKENDS})")
         self.dp_backend = dp_backend
         self.device = device
+        # what the last optimize_batch call shared (BatchPlanReport)
+        self.last_batch_report = None
 
     @property
     def stats_epoch(self) -> int:
@@ -456,6 +460,20 @@ class OdysseyOptimizer:
         if sig is not None:
             self.plan_cache.put(sig, plan, var_order, epoch=epoch)
         return plan
+
+    def optimize_batch(self, queries: "list[BGPQuery]") -> "list[PhysicalPlan]":
+        """Plan a batch through the truly batched pipeline
+        (``repro_torch.core.batch_planner.plan_batch``): one epoch snapshot,
+        plan-cache hits and exact-signature duplicates rebound per query,
+        one shared source-selection pass over the union of the remaining
+        queries' stars, and one stacked DP sweep per structural shape on
+        ``self.device``.  Bit-identical per query to
+        ``[self.optimize(q) for q in queries]`` — batching changes the
+        planning cost, never the plans.  The sharing achieved is reported on
+        ``self.last_batch_report``."""
+        from repro_torch.core.batch_planner import plan_batch
+
+        return plan_batch(self, queries)
 
     def _optimize_uncached(self, query: BGPQuery, t0: float) -> PhysicalPlan:
         if not query.is_conjunctive():

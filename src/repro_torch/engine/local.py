@@ -2,9 +2,9 @@
 evaluation of physical plans over a federation, with the paper's runtime
 metrics (NTT = tuples shipped endpoint->engine, requests, wall time).
 
-The executor of the planning loop (ET / NTT figures).  ``execute`` is the
-recursive evaluator; the reference package's operator pipeline, whose rows
-and metrics are bit-identical to it by contract, is not ported yet.
+The executor of the planning loop (ET / NTT figures).  ``execute`` runs
+the operator pipeline (``repro_torch.engine.pipeline``); the recursive
+evaluator stays as ``execute_recursive``, the pipeline's oracle.
 """
 from __future__ import annotations
 
@@ -229,10 +229,11 @@ class ExecutionResult:
     working (with a ``DeprecationWarning``) instead of breaking.  Prefer
     the named fields.
 
-    ``card_log`` (the operator pipeline's cardinality samples) is empty on
-    the recursive evaluator; ``fallback`` names the engine substitution, if
-    any, that produced this result.  Both are kept for the reference
-    package's result shape.
+    ``card_log`` carries the pipeline's observed-vs-estimated cardinality
+    samples (``repro_torch.engine.pipeline.CardObservation``; empty on the
+    recursive path) — the signal ``repro_torch.stats.feedback`` turns into
+    triggered ``refresh_source`` calls.  ``fallback`` names the engine
+    substitution, if any, that produced this result.
     """
 
     rows: Relation
@@ -251,13 +252,28 @@ class ExecutionResult:
 
 
 class LocalEngine:
-    """Host execution engine: the recursive evaluator.  Its rows and
-    NTT/request metrics are those of the reference package's
-    ``LocalEngine.execute`` (whose operator pipeline is bit-identical to the
-    recursive evaluator by contract)."""
+    """Host execution engine.
 
-    def __init__(self, fed: Federation):
+    ``execute`` lowers the plan onto the adaptive operator pipeline
+    (``repro_torch.engine.pipeline``) — bit-identical rows and NTT/request
+    metrics to the recursive evaluator, which survives as
+    ``execute_recursive`` (``use_pipeline=False`` routes everything there)
+    and remains the differential oracle of the pipeline tests.
+
+    ``scan_policy`` is the pipeline's dispatch order (``"static"`` |
+    ``"adaptive"`` | ``"random"``); ``clock`` an optional virtual clock for
+    deterministic latency simulation.  Plain ``LocalEngine`` ignores
+    injected faults (``honor_faults=False``).
+    """
+
+    honor_faults = False
+
+    def __init__(self, fed: Federation, use_pipeline: bool = True,
+                 scan_policy: str = "static", clock=None):
         self.fed = fed
+        self.use_pipeline = use_pipeline
+        self.scan_policy = scan_policy
+        self.clock = clock
 
     # -- pattern / star evaluation at one endpoint ---------------------------
     def _eval_pattern(self, src: Source, tp: TriplePattern,
@@ -303,7 +319,7 @@ class LocalEngine:
         matches = _concat(parts) if parts else _empty(out_vars)
         return self._join(bindings, matches)
 
-    # -- generic hash join (module-level helpers) ---------------------------
+    # -- generic hash join (module-level helpers, shared with the pipeline) --
     def _join_indices(self, left: Relation,
                       right: Relation) -> "tuple[np.ndarray, np.ndarray]":
         return join_indices(left, right)
@@ -373,8 +389,16 @@ class LocalEngine:
         return self._join(left, right)
 
     def execute(self, plan: PhysicalPlan) -> ExecutionResult:
-        """Evaluate ``plan`` recursively and complete the query (projection
-        and DISTINCT)."""
+        if self.use_pipeline:
+            from repro_torch.engine.pipeline import compile_plan
+            exec_ = compile_plan(plan, self.fed, honor_faults=self.honor_faults,
+                                 policy=self.scan_policy, clock=self.clock)
+            return exec_.run()
+        return self.execute_recursive(plan)
+
+    def execute_recursive(self, plan: PhysicalPlan) -> ExecutionResult:
+        """The recursive evaluator — the pipeline's differential oracle
+        (bit-identical rows and metrics by contract)."""
         metrics = ExecutionMetrics()
         t0 = time.perf_counter()
         rel = self._execute(plan.root, metrics)

@@ -13,7 +13,10 @@ bit-identity with the host DP, and the integer kernels do not care, so one
 flag set serves all.
 
 ``LAUNCHES`` counts kernel launches per kernel (``launch`` adds one per
-launch; plain-version calls do not count).  ``upload`` hands a kernel a
+launch; plain-version calls do not count).  Loading and building are safe
+from any thread (the query server's planner thread may be the first to
+launch ``dp_sweep``): one lock covers both, and each build writes a
+temporary file named for its process and thread.  ``upload`` hands a kernel a
 host-built table without waiting for the card.
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -39,6 +43,9 @@ _SIGNATURES: dict = {}    # kernel name -> (C symbol, ctypes argtypes)
 LAUNCHES: dict = {}       # kernel name -> launches (plain calls not counted)
 BUILD_LOG: dict = {}      # nvcc's stderr per kernel (ptxas register report)
 _LIBS: dict = {}
+# held while a library is built or loaded into _LIBS (reentrant: _lib calls
+# build_kernels under it)
+_LOCK = threading.RLock()
 
 
 def register(name: str, source: str, symbol: str, argtypes: list) -> None:
@@ -84,39 +91,45 @@ def build_kernels(names: "tuple[str, ...] | None" = None) -> "list[str]":
     """Compile every kernel library (default: all registered) that is not
     built yet: one ``nvcc`` per source, all started together.  Returns the
     names it compiled."""
-    jobs = []
-    for name in (tuple(SOURCES) if names is None else names):
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    failed = []
-    for name, out, tmp, proc in jobs:
-        _, err = proc.communicate()
-        BUILD_LOG[name] = err.decode(errors="replace")
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n"
-                          f"{BUILD_LOG[name]}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return [j[0] for j in jobs]
+    with _LOCK:
+        jobs = []
+        for name in (tuple(SOURCES) if names is None else names):
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = (out.parent
+                   / f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(_CSRC / SOURCES[name])]
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            _, err = proc.communicate()
+            BUILD_LOG[name] = err.decode(errors="replace")
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{BUILD_LOG[name]}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        return [j[0] for j in jobs]
 
 
 def _lib(name: str):
     fn = _LIBS.get(name)
     if fn is None:
-        build_kernels((name,))
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
+        with _LOCK:
+            fn = _LIBS.get(name)
+            if fn is None:
+                build_kernels((name,))
+                symbol, argtypes = _SIGNATURES[name]
+                fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _LIBS[name] = fn
     return fn
 
 

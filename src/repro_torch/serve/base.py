@@ -1,6 +1,5 @@
 """The unified serving surface shared by the token engine and the query
-engine (a copy of the reference's ``serve/base.py``; the port has the token
-engine so far, the query engine is ROADMAP.md queue item 6).
+engine (a copy of the reference's ``serve/base.py``).
 
 Both engines expose the same four verbs over the same stats shape
 (``ServeBase``):
@@ -60,7 +59,7 @@ class ServeStats:
 @runtime_checkable
 class ServeBase(Protocol):
     """Structural protocol of a serving engine (see the module docstring).
-    ``ServeEngine`` satisfies it (the reference's ``QueryServeEngine`` too)."""
+    ``ServeEngine`` and ``QueryServeEngine`` both satisfy it."""
 
     serve_stats: ServeStats
 

@@ -6,6 +6,9 @@ with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports only the port, so the machine with the card needs no jax."""
+import hashlib
+import json
+
 import numpy as np
 import pytest
 
@@ -691,6 +694,24 @@ def test_lm_prefill_and_serving_on_card_equal_cpu(dev, arch):
     kname = "ssm_scan" if arch.startswith("falcon") else "flash_attention"
     assert build.LAUNCHES[kname] == before[kname] + cfg.n_layers
     want, wc = MDL.prefill_with_caches(cfg, cpu, toks, 192)
+    # the largest errors per layer and cache, a digest of each side's
+    # results (which side moved when they disagree), and the float32 matmul
+    # settings, shown under -s
+    def digest(logits, caches):
+        h = hashlib.sha256(logits.cpu().numpy().tobytes())
+        for c in caches:
+            for k in sorted(c):
+                h.update(c[k].cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    print(json.dumps({
+        "arch": arch, "logits_max_abs_err": float((got.cpu() - want).abs().max()),
+        "cache_max_abs_err": [{k: float((a[k].cpu() - b[k]).abs().max())
+                               for k in b} for a, b in zip(gc, wc)],
+        "card_digest": digest(got, gc), "cpu_digest": digest(want, wc),
+        "cpu_threads": torch.get_num_threads(),
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision()}))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for a, b in zip(gc, wc):
         for key in b:
@@ -704,3 +725,93 @@ def test_lm_prefill_and_serving_on_card_equal_cpu(dev, arch):
             eng.submit(Request(rid=i, prompt=toks[0, :n].tolist(), max_new=6))
         outs.append([r.out for r in sorted(eng.drain(), key=lambda r: r.rid)])
     assert outs[0] == outs[1]
+
+
+def _poison_allocator(dev, value: float) -> None:
+    """Fill blocks of PyTorch's caching allocator with ``value`` and free
+    them, so the next allocations of those sizes start from it instead of
+    from whatever the card held."""
+    sizes = [1 << k for k in range(8, 23)] * 16 + [1 << 26] * 8
+    ts = [torch.full((n,), value, dtype=torch.float32, device=dev)
+          for n in sizes]
+    torch.cuda.synchronize()
+    del ts
+
+
+@pytest.mark.parametrize("poison", [float("nan"), 1.0e3])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+def test_lm_prefill_on_card_ignores_stale_memory(dev, arch, poison):
+    """The card's prefill reads nothing it did not write: with the
+    allocator's free blocks filled with NaN or a large value beforehand,
+    logits and caches still equal the CPU's, and two card runs are
+    bit-identical."""
+    from repro_torch.config.base import reduced_config
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MDL
+
+    cfg = reduced_config(get_arch(arch), head_dim=64)
+    cpu = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    card = {k: v.to(dev) for k, v in cpu.items() if k != "layers"}
+    card["layers"] = [{k: ({n: t.to(dev) for n, t in v.items()}
+                           if isinstance(v, dict) else v.to(dev))
+                       for k, v in lp.items()} for lp in cpu["layers"]]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (1, 150)))
+    want, wc = MDL.prefill_with_caches(cfg, cpu, toks, 192)
+    runs = []
+    for _ in range(2):
+        _poison_allocator(dev, poison)
+        got, gc = MDL.prefill_with_caches(cfg, card, toks.to(dev), 192)
+        runs.append((got.cpu(), [{k: c[k].cpu() for k in c} for c in gc]))
+    print(json.dumps({"arch": arch, "poison": str(poison),
+                      "layer_cache_max_abs_err": [
+                          max(float((c[k] - w[k]).abs().max()) for k in w)
+                          for c, w in zip(runs[0][1], wc)]}))
+    for got, gc in runs:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        for a, b in zip(gc, wc):
+            for key in b:
+                torch.testing.assert_close(a[key], b[key], rtol=1e-4,
+                                           atol=1e-4)
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_query_serve_on_card_equals_cpu(dev, pipeline):
+    """``QueryServeEngine`` on the card (the planner thread launching
+    ``dp_sweep`` when ``pipeline``) serves the rows of the same engine on
+    the CPU, request by request, and answers equal the oracle."""
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.engine.local import naive_evaluate
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation,
+                                           generate_workload)
+    from repro_torch.serve import QueryServeEngine
+
+    fed, gt = generate_federation(fedbench_like_spec(scale=0.06, seed=3))
+    stats = build_federated_stats(fed)
+    wave = generate_workload(fed, gt, n_star=4, n_hybrid=4, n_path=2, seed=9)
+    wave = wave + wave[:3]
+    served = []
+    before = build.LAUNCHES["dp_sweep"]
+    for device in ("cuda", "cpu"):
+        with QueryServeEngine(fed, stats, max_batch=4, pipeline=pipeline,
+                              device=device) as eng:
+            for q in wave:
+                eng.submit(q, deadline=0.0)
+            served.append({r.qid: r for r in eng.drain()})
+        if device == "cuda":
+            assert build.LAUNCHES["dp_sweep"] > before
+    for qid, r in served[0].items():
+        w = served[1][qid]
+        assert list(r.rows) == list(w.rows)
+        for v in r.rows:
+            assert r.rows[v].tobytes() == w.rows[v].tobytes()
+        proj = r.query.effective_projection()
+        n = len(next(iter(r.rows.values()))) if r.rows else 0
+        got = set(zip(*[r.rows[v].tolist() for v in proj])) if n else set()
+        assert got == naive_evaluate(fed, r.query)

@@ -84,6 +84,33 @@ def test_entry_points_default_to_the_card():
         assert params["dp_backend"].default == "torch"
 
 
+def test_query_serving_entry_points_default_to_the_card():
+    """``QueryServeEngine`` plans on the card unless asked otherwise,
+    ``optimize_batch`` hands the optimizer's device to every stacked sweep
+    (through ``plan_batch``), and ``LocalEngine`` executes through the
+    operator pipeline by default."""
+    from repro_torch.core import batch_planner as bp
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.engine.local import LocalEngine
+    from repro_torch.serve.query import QueryServeEngine
+
+    init = inspect.signature(QueryServeEngine).parameters
+    assert init["device"].default == "cuda"
+    assert init["dp_backend"].default == "torch"
+    eng = inspect.signature(LocalEngine).parameters
+    assert eng["use_pipeline"].default is True
+    assert eng["scan_policy"].default == "static"
+    assert eng["clock"].default is None
+    assert LocalEngine.honor_faults is False
+    assert "device=optimizer.device" in inspect.getsource(bp.plan_batch)
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"core/batch_planner.py", "engine/pipeline.py",
+            "stats/feedback.py", "serve/scheduler.py",
+            "serve/query.py"} <= names
+    assert hasattr(OdysseyOptimizer, "optimize_batch")
+
+
 def test_stats_entry_points_default_to_the_card():
     from repro_torch.core.characteristic_sets import \
         compute_characteristic_sets_torch
