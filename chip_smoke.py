@@ -65,6 +65,31 @@ Each phase prints one JSON line:
                 form that ran; and Algorithm 1 once more, split on the
                 host clock into its probe calls, pair building, exact
                 checks, CP tables and the rest;
+``baselines``   the paper's comparison (``benchmarks/common.py``) on its own
+                fixture, FedBench scale 1.0 (seed 7) and 25 queries: each
+                query enters as SPARQL text (``parse_sparql`` of its
+                serialization, equal to the query), and all eight engines
+                of ``make_optimizers`` (Odyssey, FedX cold and warm,
+                HiBISCuS, DP-VOID, SPLENDID, Odyssey-FedX, FedX-Odyssey;
+                the two DP engines on their defaults, the torch DP on cuda)
+                plan and execute it once through ``LocalEngine``; every
+                answer equals ``naive_evaluate``, each engine's NTT equals
+                the reference's, and (outside the counted window) the two
+                DP engines' plans equal the numpy backend's; one line per
+                engine: optimization time, NSS, NSQ, NTT, requests, ASK
+                count, execution time;
+``failover``    on the same federation, every source a ``FlakySource`` and
+                every session planning on its defaults (cuda): (a) one
+                transient failure per source, retried; (b) the hub
+                ``DBpedia`` dead, salvaged mid-query; (c) the same with
+                exclude-and-replan (the replans sweep on the card); (d) the
+                hub dying mid-scan inside ``execute_batch`` over the 25
+                queries (completed results kept, the rest replanned in one
+                ``optimize_batch``); (e) the hub restored; answers equal
+                ``naive_evaluate`` over the whole federation or the
+                survivors, as each result's ``partial`` says; outside the
+                window the whole scenario again on the numpy backend, every
+                plan and replan equal;
 ``lm``          LM serving at full published width, float32, TF32 off:
                 ``qwen2-0.5b`` (24 layers, 494 M params; 8 requests of
                 512-3072 prompt tokens, 32 new each, on 4 slots of a 4096
@@ -81,12 +106,12 @@ Each phase prints one JSON line:
                 device times, bounds and a library yardstick; the scan also
                 at the longest prompt.
 
-The main paths are ``fedbench``, ``query_serve``, ``large_star`` and
-``stats`` running once, then ``lm``, each window with the launch counts set
-to 0 just before and read just after; the kernel checks, all timings and
-the plan comparisons with the numpy backend (but ``query_serve``'s, which
-launch nothing) run outside those windows, so their own launches are not
-counted.  Then the card's name and power limit, one JSON line with every
+The main paths are ``fedbench``, ``query_serve``, ``large_star``,
+``stats``, ``baselines`` and ``failover`` running once, then ``lm``, each
+window with the launch counts set to 0 just before and read just after;
+the kernel checks, all timings and the plan comparisons with the numpy
+backend (but ``query_serve``'s, which launch nothing) run outside those
+windows, so their own launches are not counted.  Then the card's name and power limit, one JSON line with every
 kernel's launches on the main paths, error against its plain version, time
 and bound (``dp_sweep`` at clique12 with clique14's and the serving path's
 largest group's times beside it, ``dp_layer`` twice, at the largest tile of
@@ -636,10 +661,7 @@ def phase_fedbench(state: dict) -> None:
         t1 = time.perf_counter()
         res = eng.execute(plan)
         t_exec += time.perf_counter() - t1
-        rel = res.rows
-        proj = q.effective_projection()
-        nrow = len(next(iter(rel.values()))) if rel else 0
-        got = set(zip(*[rel[v].tolist() for v in proj])) if nrow else set()
+        got = answer_set(res, q)
         if got != naive_evaluate(fed, q):
             raise AssertionError(f"{q.name}: answers differ from the oracle")
         ntt += res.metrics.transferred_tuples
@@ -1177,7 +1199,7 @@ def check_query_serve(state: dict) -> None:
     fed, stats = state["fedbench_fs"]
     wave, oracle, rec, runs = state.pop("query_serve_run")
     a, b = runs["arrival_drain"]["done"], runs["affinity_pipeline"]["done"]
-    answers = {}
+    oracle_sets = {}
     nonempty = 0
     for qid, q in enumerate(wave):
         ra, rb = a[qid], b[qid]
@@ -1189,12 +1211,10 @@ def check_query_serve(state: dict) -> None:
         if any(getattr(ra.metrics, m) != getattr(rb.metrics, m) for m in
                ("transferred_tuples", "requests", "intermediate_rows")):
             raise AssertionError(f"qid {qid}: scheduling changed metrics")
-        if id(q) not in answers:
-            answers[id(q)] = naive_evaluate(fed, q)
-        proj = q.effective_projection()
-        n = len(next(iter(ra.rows.values()))) if ra.rows else 0
-        got = set(zip(*[ra.rows[v].tolist() for v in proj])) if n else set()
-        if got != answers[id(q)]:
+        if id(q) not in oracle_sets:
+            oracle_sets[id(q)] = naive_evaluate(fed, q)
+        got = answer_set(ra, q)
+        if got != oracle_sets[id(q)]:
             raise AssertionError(f"qid {qid} ({q.name}): answers differ "
                                  f"from the oracle")
         nonempty += bool(got)
@@ -1241,7 +1261,7 @@ def check_query_serve(state: dict) -> None:
     for name, run in runs.items():
         out["runs"][name] = run["row"]
     emit("query_serve", nvidia_smi=state["smi"], **out,
-         nonempty_answers=nonempty, distinct_checked=len(answers),
+         nonempty_answers=nonempty, distinct_checked=len(oracle_sets),
          host_split_first_batch=split,
          dp_sweep_largest_group=state["query_serve_sweep"])
 
@@ -2006,6 +2026,368 @@ def check_stats(state: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# baselines and failover: the paper's comparison (benchmarks/common.py) and
+# the fault-tolerance path on the comparison's own fixture
+# --------------------------------------------------------------------------
+
+# transferred tuples (NTT) of each engine over the comparison's 25 queries,
+# as the reference's ``benchmarks.common.run_all(1.0, repeats=1)`` counts
+# them; counts, so they do not depend on the device
+REF_NTT = {"Odyssey": 25502, "FedX-Cold": 29995, "FedX-Warm": 29995,
+           "HiBISCuS": 25213, "DP-VOID": 92480, "SPLENDID": 92480,
+           "Odyssey-FedX": 24564, "FedX-Odyssey": 25502}
+DP_ENGINES = ("Odyssey", "FedX-Odyssey")     # the two that run the exact DP
+HUB = "DBpedia"                              # the source failover kills
+
+
+def comparison_fixture():
+    """``benchmarks/common.py``'s ``fixture(1.0)`` over the port: FedBench
+    scale 1.0 (seed 7), its statistics, and 25 queries named after the
+    paper's groups (LS star, CD hybrid, LD path)."""
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation,
+                                           generate_workload)
+
+    fed, gt = generate_federation(fedbench_like_spec(scale=1.0, seed=7))
+    stats = build_federated_stats(fed)
+    queries = generate_workload(fed, gt, n_star=11, n_hybrid=7, n_path=7,
+                                seed=13)
+    for q in queries:
+        q.name = (q.name.replace("ST", "LS").replace("HY", "CD")
+                  .replace("PA", "LD"))
+    return fed, stats, queries
+
+
+def make_optimizers(fed, stats, **dp) -> dict:
+    """``benchmarks/common.py``'s ``make_optimizers`` over the port's
+    classes, Odyssey's plan cache off; ``dp`` (``dp_backend``, ``device``)
+    goes to the two DP engines, which otherwise keep their defaults (the
+    torch DP on cuda)."""
+    from repro_torch.baselines import (FedXOdyssey, FedXOptimizer,
+                                       HibiscusOptimizer, OdysseyFedX,
+                                       VoidDPOptimizer)
+    from repro_torch.core.planner import OdysseyOptimizer
+
+    return {
+        "Odyssey": OdysseyOptimizer(stats, plan_cache_size=0, **dp),
+        "FedX-Cold": FedXOptimizer(fed, warm=False),
+        "FedX-Warm": FedXOptimizer(fed, warm=True),
+        "HiBISCuS": HibiscusOptimizer(fed),
+        "DP-VOID": VoidDPOptimizer(fed),
+        "SPLENDID": VoidDPOptimizer(fed, use_ask=True),
+        "Odyssey-FedX": OdysseyFedX(stats),
+        "FedX-Odyssey": FedXOdyssey(stats, fed, **dp),
+    }
+
+
+def answer_set(res, q) -> set:
+    """The projected answer set of an execution, as ``naive_evaluate``
+    returns it."""
+    rel = res.rows
+    proj = q.effective_projection()
+    n = len(next(iter(rel.values()))) if rel else 0
+    return set(zip(*[rel[v].tolist() for v in proj])) if n else set()
+
+
+def _sweeps(jo, before: dict) -> int:
+    return sum(jo.DP_SWEEP_COUNTERS[k] - before[k]
+               for k in ("resident", "tiled"))
+
+
+def phase_baselines(state: dict) -> None:
+    """The paper's comparison on the main path: each query enters as SPARQL
+    text (``parse_sparql`` of its serialization, as the quickstart does),
+    and all eight engines of ``make_optimizers`` plan and execute it once
+    through ``LocalEngine``; every answer equals ``naive_evaluate`` and each
+    engine's NTT equals the reference's.  The plan comparisons with the
+    numpy backend run in ``check_baselines``, outside the counted window."""
+    from repro_torch.core import join_order as jo
+    from repro_torch.engine.local import LocalEngine, naive_evaluate
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.query import parse_sparql
+    from repro_torch.query.sparql import serialize_sparql
+
+    t0 = time.perf_counter()
+    fed, stats, queries = comparison_fixture()
+    d = fed.dictionary
+    parsed = []
+    for q in queries:
+        p = parse_sparql(serialize_sparql(q, d), d)
+        p.name = q.name
+        if p != q:
+            raise AssertionError(f"{q.name}: the SPARQL round trip differs")
+        parsed.append(p)
+    want = [naive_evaluate(fed, q) for q in parsed]
+    setup_s = time.perf_counter() - t0
+
+    opts = make_optimizers(fed, stats)
+    for name in DP_ENGINES:
+        if (opts[name].dp_backend, opts[name].device) != ("torch", DEVICE):
+            raise AssertionError(f"{name} must plan on cuda by default")
+    eng = LocalEngine(fed)
+    rows = {name: dict(opt_ms=0.0, plan_ms=0.0, exec_ms=0.0, nss=0, nsq=0,
+                       ntt=0, requests=0) for name in opts}
+    plans: dict = {name: [] for name in DP_ENGINES}
+    before, l0 = dict(jo.DP_SWEEP_COUNTERS), LAUNCHES["dp_sweep"]
+    for q, w in zip(parsed, want):
+        for name, opt in opts.items():
+            t1 = time.perf_counter()
+            plan = opt.optimize(q)
+            t2 = time.perf_counter()
+            res = eng.execute(plan)
+            t3 = time.perf_counter()
+            if answer_set(res, q) != w:
+                raise AssertionError(f"{name}:{q.name}: answers differ from "
+                                     f"the oracle")
+            r = rows[name]
+            r["opt_ms"] += plan.optimization_ms
+            r["plan_ms"] += (t2 - t1) * 1e3
+            r["exec_ms"] += (t3 - t2) * 1e3
+            r["nss"] += plan.n_selected_sources
+            r["nsq"] += plan.n_subqueries
+            r["ntt"] += res.metrics.transferred_tuples
+            r["requests"] += res.metrics.requests
+            if name in plans:
+                plans[name].append(plan)
+    sweeps, launches = _sweeps(jo, before), LAUNCHES["dp_sweep"] - l0
+    if sweeps == 0 or launches == 0:
+        raise AssertionError("no comparison query reached dp_sweep")
+    for name, opt in opts.items():
+        rows[name]["ask_count"] = getattr(opt, "ask_count", None)
+        rows[name]["ref_ntt"] = REF_NTT[name]
+        if rows[name]["ntt"] != REF_NTT[name]:
+            raise AssertionError(f"{name}: NTT {rows[name]['ntt']} against "
+                                 f"the reference's {REF_NTT[name]}")
+    state["baselines_run"] = (fed, stats, parsed, want, plans)
+    state["baselines"] = dict(
+        queries=len(parsed), runs=len(parsed) * len(opts), complete=True,
+        setup_s=setup_s, dp_sweeps=sweeps, dp_sweep_launches=launches,
+        engines=rows)
+
+
+def check_baselines(state: dict) -> None:
+    """Odyssey's and FedX-Odyssey's card plans against the numpy backend's,
+    node for node; then one line per engine."""
+    fed, stats, parsed, _, plans = state["baselines_run"]
+    opts = make_optimizers(fed, stats, dp_backend="numpy")
+    for name in DP_ENGINES:
+        for q, plan in zip(parsed, plans[name]):
+            same_plan(plan, opts[name].optimize(q), f"{name}:{q.name}")
+    b = state["baselines"]
+    for name, row in b["engines"].items():
+        emit("baselines", engine=name, queries=b["queries"],
+             card_plans_equal_numpy=name in DP_ENGINES or None, **row)
+    emit("baselines", engine="all", **{k: v for k, v in b.items()
+                                       if k != "engines"})
+
+
+def _recorded(session, log: list):
+    """Log every plan ``session``'s optimizer emits (``optimize`` and
+    ``optimize_batch``), in order, for the replay on the numpy backend."""
+    opt = session.optimizer
+    one, batch = opt.optimize, opt.optimize_batch
+
+    def optimize(q):
+        plan = one(q)
+        log.append(("optimize", [plan]))
+        return plan
+
+    def optimize_batch(qs):
+        out = batch(qs)
+        log.append(("optimize_batch", list(out)))
+        return out
+
+    opt.optimize, opt.optimize_batch = optimize, optimize_batch
+    return session
+
+
+def failover_scenario(fed, stats, queries, want, survivors_want, **dp):
+    """Steps (a)-(e) of the failover phase on ``fed``, every source wrapped
+    in a ``FlakySource``; sessions plan with ``dp`` (their defaults when
+    empty).  Returns ``(rows, logs)``: per step its counts and host time,
+    and every plan its sessions emitted."""
+    from repro_torch.core import join_order as jo
+    from repro_torch.ft.failover import (FailoverSession, FlakySource,
+                                         execute_with_failover)
+    from repro_torch.ft.resilience import RetryPolicy
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.rdf.dataset import Federation
+
+    def flaky(**kw_of):
+        srcs = [FlakySource(s, **kw_of.get(s.name, {})) for s in fed.sources]
+        return Federation(srcs, fed.dictionary), {s.name: s for s in srcs}
+
+    def check(res, i, partial_want, step):
+        exp = survivors_want[i] if res.partial else want[i]
+        if answer_set(res, queries[i]) != exp:
+            raise AssertionError(f"failover {step}: {queries[i].name}: "
+                                 f"answers differ from the oracle")
+        if res.partial != partial_want(res) or (
+                res.partial and res.excluded != [HUB]):
+            raise AssertionError(f"failover {step}: {queries[i].name}: "
+                                 f"partial {res.partial}, excluded "
+                                 f"{res.excluded}")
+
+    rows: dict = {}
+    logs: dict = {k: [] for k in "abcde"}
+
+    def step(key, fn):
+        before, l0 = dict(jo.DP_SWEEP_COUNTERS), LAUNCHES["dp_sweep"]
+        t0 = time.perf_counter()
+        res, extra = fn()
+        rows[key] = dict(
+            seconds=time.perf_counter() - t0,
+            replans=sum(r.replans for r in res),
+            salvages=sum(r.salvages for r in res),
+            rerouted=sum(len(r.rerouted) for r in res),
+            partial=sum(r.partial for r in res),
+            dp_sweeps=_sweeps(jo, before),
+            dp_sweep_launches=LAUNCHES["dp_sweep"] - l0, **extra)
+        return res
+
+    def transient():           # (a) one transient failure per source
+        fl, srcs = flaky(**{s.name: {"fail_times": 1} for s in fed.sources})
+        sleeps: list = []
+        session = _recorded(FailoverSession(
+            fl, stats, retry=RetryPolicy(max_attempts=3, base_delay_s=0.0,
+                                         sleep=sleeps.append), **dp),
+            logs["a"])
+        res = [session.execute(q) for q in queries]
+        for i, r in enumerate(res):
+            check(r, i, lambda r: False, "a")
+        if not sleeps:
+            raise AssertionError("failover a: no transient failure was retried")
+        return res, dict(retries=len(sleeps),
+                         hub_tuples=srcs[HUB].tuples_served)
+
+    step("a", transient)
+    hub_tuples = rows["a"]["hub_tuples"]
+
+    def salvage():             # (b) the hub dead, salvaged mid-query
+        fl, _ = flaky(**{HUB: {"dead": True}})
+        res = []
+        for q in queries:
+            session = _recorded(FailoverSession(fl, stats, **dp), logs["b"])
+            res.append(execute_with_failover(fl, stats, q, session=session))
+        for i, r in enumerate(res):
+            check(r, i, lambda r: r.salvages > 0, "b")
+            if r.replans:
+                raise AssertionError("failover b: a salvaged query replanned")
+        if not any(r.salvages for r in res):
+            raise AssertionError("failover b: no query touched the hub")
+        return res, {}
+
+    res_b = step("b", salvage)
+
+    def replan():              # (c) the same, exclude and replan
+        fl, _ = flaky(**{HUB: {"dead": True}})
+        res, swept = [], 0
+        for q in queries:
+            session = _recorded(FailoverSession(fl, stats, salvage=False,
+                                                **dp), logs["c"])
+            before = dict(jo.DP_SWEEP_COUNTERS)
+            res.append(session.execute(q))
+            # a multi-star query sweeps for its plan and for its replan
+            swept += bool(res[-1].replans) and _sweeps(jo, before) == 2
+        for i, (r, rb) in enumerate(zip(res, res_b)):
+            check(r, i, lambda r: r.replans > 0, "c")
+            if r.salvages or (answer_set(r, queries[i])
+                              != answer_set(rb, queries[i])):
+                raise AssertionError(f"failover c: {queries[i].name} differs "
+                                     f"from its salvaged answer")
+        return res, dict(replans_through_dp=swept)
+
+    step("c", replan)
+
+    fl_d, srcs_d = flaky(**{HUB: {"die_after_tuples": hub_tuples // 2}})
+    session_d = _recorded(FailoverSession(fl_d, stats, **dp), logs["d"])
+
+    def mid_batch():           # (d) the hub dies inside execute_batch
+        res = session_d.execute_batch(queries)
+        kill = next((i for i, r in enumerate(res) if r.salvages), None)
+        batches = [len(p) for kind, p in logs["d"] if kind == "optimize_batch"]
+        if (kill is None or session_d.excluded != [HUB]
+                or batches != [len(queries), len(queries) - kill - 1]):
+            raise AssertionError(f"failover d: death at {kill}, batches "
+                                 f"{batches}, excluded {session_d.excluded}")
+        for i, r in enumerate(res):
+            check(r, i, lambda r, i=i: i >= kill, "d")
+        return res, dict(die_after_tuples=hub_tuples // 2, struck=kill,
+                         kept=kill, replanned_batch=batches[1])
+
+    step("d", mid_batch)
+
+    def restore():             # (e) the hub back
+        hub = srcs_d[HUB]
+        hub.dead, hub.die_after_tuples = False, None
+        epoch = session_d.stats.epoch
+        sid = session_d.restore(HUB)
+        res = session_d.execute_batch(queries)
+        for i, r in enumerate(res):
+            check(r, i, lambda r: False, "e")
+        if session_d.stats.epoch <= epoch or sid != len(fed.sources) - 1:
+            raise AssertionError("failover e: restore did not bump the epoch")
+        return res, dict(epoch_before=epoch, epoch=session_d.stats.epoch)
+
+    step("e", restore)
+    return rows, logs
+
+
+def phase_failover(state: dict) -> None:
+    """The fault-tolerance path on the comparison's federation, sessions
+    planning on the card (their defaults): (a) a transient failure per
+    source healed by retry, (b) the hub dead with mid-query salvage, (c)
+    the same with exclude-and-replan, (d) the hub dying mid-scan inside an
+    ``execute_batch`` over the 25 queries, (e) the hub restored.  The replay
+    on the numpy backend runs in ``check_failover``."""
+    from repro_torch.engine.local import naive_evaluate
+    from repro_torch.ft.failover import FailoverSession
+    from repro_torch.rdf.dataset import Federation
+
+    fed, stats, parsed, want, _ = state["baselines_run"]
+    dev = FailoverSession(fed, stats).optimizer
+    if (dev.dp_backend, dev.device) != ("torch", DEVICE):
+        raise AssertionError("FailoverSession must plan on cuda by default")
+    t0 = time.perf_counter()
+    survivors = Federation([s for s in fed.sources if s.name != HUB],
+                           fed.dictionary)
+    survivors_want = [naive_evaluate(survivors, q) for q in parsed]
+    oracle_s = time.perf_counter() - t0
+    rows, logs = failover_scenario(fed, stats, parsed, want, survivors_want)
+    if rows["c"]["replans_through_dp"] == 0 or rows["c"]["dp_sweep_launches"] == 0:
+        raise AssertionError("failover c: no replan reached dp_sweep")
+    for k in "de":
+        if rows[k]["dp_sweep_launches"] == 0:
+            raise AssertionError(f"failover {k}: dp_sweep never launched")
+    state["failover_run"] = (survivors_want, logs)
+    state["failover"] = dict(queries=len(parsed), killed=HUB,
+                             survivor_oracle_s=oracle_s, steps=rows)
+
+
+def check_failover(state: dict) -> None:
+    """The whole failover scenario again on the numpy backend: every plan
+    and replan of every step equal to the card's, node for node."""
+    fed, stats, parsed, want, _ = state.pop("baselines_run")
+    survivors_want, logs = state.pop("failover_run")
+    t0 = time.perf_counter()
+    _, np_logs = failover_scenario(fed, stats, parsed, want, survivors_want,
+                                   dp_backend="numpy")
+    n = 0
+    for k in "abcde":
+        if [(kind, len(p)) for kind, p in logs[k]] != [
+                (kind, len(p)) for kind, p in np_logs[k]]:
+            raise AssertionError(f"failover {k}: the numpy replay planned "
+                                 f"other batches")
+        for (_, got), (_, ref) in zip(logs[k], np_logs[k]):
+            for a, b in zip(got, ref):
+                same_plan(a, b, f"failover {k}: {a.query.name}")
+                n += 1
+    emit("failover", **state["failover"], plans_equal_numpy=n,
+         numpy_replay_s=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------
 # lm: the serving path of the LM substrate at full width
 # --------------------------------------------------------------------------
 
@@ -2568,11 +2950,15 @@ def main() -> int:
     phase_query_serve(state)
     phase_large_star(state)
     phase_stats(state)
+    phase_baselines(state)
+    phase_failover(state)
     launches = dict(build.LAUNCHES)
     check_fedbench(state)
     check_query_serve(state)
     check_large_star(state)
     check_stats(state)
+    check_baselines(state)
+    check_failover(state)
     build.reset_launches()
     phase_lm(state)
     state["main_launches"] = {k: launches.get(k, 0) + v

@@ -32,8 +32,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
     freqs = theta ** (-ar / half)
     ang = positions[..., None].float() * freqs                    # (..., S, half)
-    cos = torch.cos(ang)[..., None, :].to(x.dtype)                 # (..., S, 1, half)
-    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    # cos and sin through torch.polar, not torch.cos / torch.sin: on the
+    # CPU those go to MKL's vector math, whose first call in a process now
+    # and then returns float32 values up to 1.5e-4 off (ROADMAP queue 3,
+    # F2); polar's CPU kernel is the scalar libm, exact to float32 rounding
+    rot = torch.polar(torch.ones_like(ang), ang)[..., None, :]     # (..., S, 1, half)
+    cos = rot.real.to(x.dtype)
+    sin = rot.imag.to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 

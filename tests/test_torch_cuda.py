@@ -815,3 +815,76 @@ def test_query_serve_on_card_equals_cpu(dev, pipeline):
         n = len(next(iter(r.rows.values()))) if r.rows else 0
         got = set(zip(*[r.rows[v].tolist() for v in proj])) if n else set()
         assert got == naive_evaluate(fed, r.query)
+
+
+def _tiny_fedbench():
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation,
+                                           generate_workload)
+
+    fed, gt = generate_federation(fedbench_like_spec(scale=0.06, seed=3))
+    wl = (generate_workload(fed, gt, n_star=4, n_hybrid=4, n_path=2, seed=9)
+          + generate_workload(fed, gt, n_star=0, n_hybrid=4, n_path=4,
+                              seed=33))
+    return fed, build_federated_stats(fed), wl
+
+
+def test_fedx_odyssey_on_card_equals_numpy(dev):
+    """The FedX-Odyssey hybrid plans through ``dp_sweep`` on the card by
+    default, and its plans equal the numpy backend's node for node."""
+    from repro_torch.baselines import FedXOdyssey
+
+    fed, stats, wl = _tiny_fedbench()
+    card, ref = FedXOdyssey(stats, fed), FedXOdyssey(stats, fed,
+                                                     dp_backend="numpy")
+    assert (card.dp_backend, card.device) == ("torch", "cuda")
+    before = build.LAUNCHES["dp_sweep"]
+    for q in wl:
+        a, b = card.optimize(q), ref.optimize(q)
+        assert a.root == b.root and a.selection.star_sources == \
+            b.selection.star_sources, q.name
+    assert build.LAUNCHES["dp_sweep"] > before
+
+
+@pytest.mark.parametrize("salvage", [True, False])
+def test_failover_session_on_card_equals_numpy(dev, salvage):
+    """A ``FailoverSession`` with a dead endpoint plans and replans on the
+    card by default; every result (rows, metrics, partial, excluded,
+    replans, salvages, cache hits, epoch) equals a numpy-backend session's
+    under the same faults, and ``restore`` brings complete answers back."""
+    from repro_torch.engine.local import naive_evaluate
+    from repro_torch.ft.failover import FailoverSession, FlakySource
+    from repro_torch.rdf.dataset import Federation
+
+    fed, stats, wl = _tiny_fedbench()
+    out = []
+    before = build.LAUNCHES["dp_sweep"]
+    for dp in ({}, {"dp_backend": "numpy"}):
+        srcs = [FlakySource(s, dead=s.name == "DBpedia") for s in fed.sources]
+        session = FailoverSession(Federation(srcs, fed.dictionary), stats,
+                                  salvage=salvage, **dp)
+        res = [session.execute(q) for q in wl]
+        res += session.execute_batch(wl)
+        srcs[[s.name for s in srcs].index("DBpedia")].dead = False
+        session.restore("DBpedia")
+        res += session.execute_batch(wl)
+        out.append(res)
+        if not dp:
+            assert session.optimizer.device == "cuda"
+            assert build.LAUNCHES["dp_sweep"] > before
+    assert any(r.partial for r in out[0])
+    for got, want in zip(*out):
+        assert list(got.rows) == list(want.rows)
+        for v in got.rows:
+            assert got.rows[v].tobytes() == want.rows[v].tobytes()
+        for f in ("partial", "excluded", "replans", "salvages", "cache_hit",
+                  "stats_epoch", "rerouted"):
+            assert getattr(got, f) == getattr(want, f), f
+        assert (got.metrics.transferred_tuples, got.metrics.requests) == \
+            (want.metrics.transferred_tuples, want.metrics.requests)
+    for q, r in zip(wl, out[0][-len(wl):]):
+        proj = q.effective_projection()
+        n = len(next(iter(r.rows.values()))) if r.rows else 0
+        got = set(zip(*[r.rows[v].tolist() for v in proj])) if n else set()
+        assert not r.partial and got == naive_evaluate(fed, q)

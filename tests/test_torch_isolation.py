@@ -144,3 +144,25 @@ def test_lm_entry_points_default_to_the_card():
     for name in ("flash_attention", "ssm_scan"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / SOURCES[name]).is_file()
+
+
+def test_failover_and_baseline_entry_points_default_to_the_card():
+    """``FailoverSession`` and ``execute_with_failover`` plan (and replan
+    after an exclusion or a ``restore``) on the card unless asked
+    otherwise, and ``FedXOdyssey`` hands its backend and device to its DP."""
+    from repro_torch.baselines import hybrids as H
+    from repro_torch.ft import failover as F
+
+    for fn in (F.FailoverSession, F.execute_with_failover, H.FedXOdyssey):
+        params = inspect.signature(fn).parameters
+        assert params["dp_backend"].default == "torch", fn
+        assert params["device"].default == "cuda", fn
+    assert "dp_backend=dp_backend" in inspect.getsource(F.FailoverSession)
+    assert "device=device" in inspect.getsource(F.execute_with_failover)
+    src = inspect.getsource(H.FedXOdyssey.optimize)
+    assert "dp_backend=self.dp_backend" in src and "device=self.device" in src
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"ft/resilience.py", "ft/failover.py", "stats/void.py",
+            "query/sparql.py", "baselines/fedx.py", "baselines/hibiscus.py",
+            "baselines/void_dp.py", "baselines/hybrids.py"} <= names

@@ -99,6 +99,43 @@ def test_rmsnorm_and_rope_match_reference():
            RL.rope(jnp.asarray(x), jnp.arange(9)[None], 1e4))
 
 
+def test_rope_takes_cos_and_sin_exact_without_vector_math():
+    """F2 (ROADMAP queue 3): on the CPU ``torch.cos`` / ``torch.sin`` go to
+    MKL's vector math, whose first call in a process now and then returns
+    float32 values up to 1.5e-4 off; that moved the CPU side of the card
+    prefill test.  ``rope`` takes its rotation from ``torch.polar`` instead:
+    it calls neither, and its output equals the rotation computed in
+    float64 and rounded once, to float32 rounding, at the test's 150
+    positions and past them."""
+    from torch.overrides import TorchFunctionMode
+
+    class Calls(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.names.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1, 300, 2, 64)).astype(np.float32)
+    pos = np.arange(300)[None, :]
+    with Calls() as calls:
+        got = L.rope(_t(x), torch.from_numpy(pos), 1e6).numpy()
+    assert "polar" in calls.names
+    assert not {"cos", "sin", "cos_", "sin_"} & set(calls.names)
+    half = 32
+    freqs = 1e6 ** (-torch.arange(0, half, dtype=torch.float32) / half)
+    ang = (torch.from_numpy(pos)[..., None].float() * freqs).double().numpy()
+    cos = np.cos(ang)[..., None, :].astype(np.float32).astype(np.float64)
+    sin = np.sin(ang)[..., None, :].astype(np.float32).astype(np.float64)
+    x64 = x.astype(np.float64)
+    x1, x2 = x64[..., :half], x64[..., half:]
+    want = np.concatenate([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+
+
 def test_attention_layers_match_reference():
     arch = "qwen2-0.5b"
     cfg, rcfg, tree, _, params = perturbed_params(arch, seed=1)
