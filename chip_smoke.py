@@ -90,6 +90,27 @@ Each phase prints one JSON line:
                 survivors, as each result's ``partial`` says; outside the
                 window the whole scenario again on the numpy backend, every
                 plan and replan equal;
+``spmd``        the SPMD federation executor (``DistributedEngine``) with the
+                whole ``(9, 4)`` mesh resident on the card (one FedBench
+                source per data shard, each source's triples hash-partitioned
+                by subject over 4 model shards): (a) the ``fedbench``
+                phase's federation and card plans at ``cap`` 4096, the build
+                side gathered over the whole mesh and then partition-aware;
+                (b) FedBench at scale 10 (1,068,934 triples, tables
+                ``(9, 4, 131072, 3)`` int32), its 25 queries planned on the
+                card, ``cap`` 32768, partition-aware; (c) the ``baselines``
+                phase's Odyssey plans at ``cap`` 4096, partition-aware.
+                Each plan runs twice (equal results); no result overflows,
+                the answers of (a) and (c) equal ``naive_evaluate``, and
+                outside the counted window the rows (order, dtype) and
+                ``DistMetrics`` of (a) and (b) equal the CPU port's at the
+                same mesh and ``cap``.  One line per cell: table bytes,
+                transferred tuples, collective bytes, skipped plans, warm
+                times per query (host clock closed by a sync) beside the
+                host engine's on the same plans for (a) and (c), host syncs
+                per query, peak device memory, and for (a)'s partition-aware
+                run and (b) a ``torch.profiler`` pass (device busy share,
+                the operators and kernels with the most device time);
 ``lm``          LM serving at full published width, float32, TF32 off:
                 ``qwen2-0.5b`` (24 layers, 494 M params; 8 requests of
                 512-3072 prompt tokens, 32 new each, on 4 slots of a 4096
@@ -107,7 +128,8 @@ Each phase prints one JSON line:
                 at the longest prompt.
 
 The main paths are ``fedbench``, ``query_serve``, ``large_star``,
-``stats``, ``baselines`` and ``failover`` running once, then ``lm``, each
+``stats``, ``baselines``, ``failover`` and ``spmd`` running once, then
+``lm``, each
 window with the launch counts set to 0 just before and read just after;
 the kernel checks, all timings and the plan comparisons with the numpy
 backend (but ``query_serve``'s, which launch nothing) run outside those
@@ -652,7 +674,7 @@ def phase_fedbench(state: dict) -> None:
     eng = LocalEngine(fed)
     ntt = answers = 0
     t_plan = t_exec = 0.0
-    plans = []
+    plans, want, exec_ms = [], [], {}
     for q in queries:
         t1 = time.perf_counter()
         plan = opt.optimize(q)
@@ -660,9 +682,11 @@ def phase_fedbench(state: dict) -> None:
         plans.append(plan)
         t1 = time.perf_counter()
         res = eng.execute(plan)
-        t_exec += time.perf_counter() - t1
+        exec_ms[q.name] = (time.perf_counter() - t1) * 1e3
+        t_exec += exec_ms[q.name] / 1e3
         got = answer_set(res, q)
-        if got != naive_evaluate(fed, q):
+        want.append(naive_evaluate(fed, q))
+        if got != want[-1]:
             raise AssertionError(f"{q.name}: answers differ from the oracle")
         ntt += res.metrics.transferred_tuples
         answers += len(got)
@@ -671,6 +695,9 @@ def phase_fedbench(state: dict) -> None:
     if delta["resident"] + delta["tiled"] == 0:
         raise AssertionError("no FedBench query reached the device DP")
     state["fedbench_run"] = (stats, queries, opt, plans)
+    # the oracle's answers (LocalEngine's equal them) and LocalEngine's
+    # time per query, for the spmd phase on the same plans
+    state["fedbench_spmd"] = (want, exec_ms)
     state["fedbench_fs"] = (fed, stats)
     state["fedbench"] = dict(
         sources=len(fed.sources), triples=fed.total_triples(),
@@ -2129,6 +2156,7 @@ def phase_baselines(state: dict) -> None:
     rows = {name: dict(opt_ms=0.0, plan_ms=0.0, exec_ms=0.0, nss=0, nsq=0,
                        ntt=0, requests=0) for name in opts}
     plans: dict = {name: [] for name in DP_ENGINES}
+    odyssey: dict = {}      # per query: LocalEngine's exec_ms and NTT
     before, l0 = dict(jo.DP_SWEEP_COUNTERS), LAUNCHES["dp_sweep"]
     for q, w in zip(parsed, want):
         for name, opt in opts.items():
@@ -2150,6 +2178,9 @@ def phase_baselines(state: dict) -> None:
             r["requests"] += res.metrics.requests
             if name in plans:
                 plans[name].append(plan)
+            if name == "Odyssey":
+                odyssey[q.name] = dict(exec_ms=(t3 - t2) * 1e3,
+                                       ntt=res.metrics.transferred_tuples)
     sweeps, launches = _sweeps(jo, before), LAUNCHES["dp_sweep"] - l0
     if sweeps == 0 or launches == 0:
         raise AssertionError("no comparison query reached dp_sweep")
@@ -2160,6 +2191,7 @@ def phase_baselines(state: dict) -> None:
             raise AssertionError(f"{name}: NTT {rows[name]['ntt']} against "
                                  f"the reference's {REF_NTT[name]}")
     state["baselines_run"] = (fed, stats, parsed, want, plans)
+    state["baselines_odyssey"] = odyssey
     state["baselines"] = dict(
         queries=len(parsed), runs=len(parsed) * len(opts), complete=True,
         setup_s=setup_s, dp_sweeps=sweeps, dp_sweep_launches=launches,
@@ -2385,6 +2417,231 @@ def check_failover(state: dict) -> None:
                 n += 1
     emit("failover", **state["failover"], plans_equal_numpy=n,
          numpy_replay_s=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------
+# spmd: the SPMD federation executor, the whole (9, 4) mesh on the card
+# --------------------------------------------------------------------------
+
+SPMD_MESH = (9, 4)          # one FedBench source per data shard, 4 model shards
+SPMD_SCALE = 10.0           # (b): fedbench_like_spec scale, 1,068,934 triples
+# (cell, cap, partition_aware, held to the CPU port outside the window)
+SPMD_CELLS = (("a_gather", 4096, False, True), ("a_aware", 4096, True, True),
+              ("b", 32768, True, True), ("c", 4096, True, False))
+SPMD_NAMED = ("CD1", "CD6")   # ROADMAP queue 1 item 11's HY1 and HY6
+
+
+def _spmd_run(fed, queries, plans, cap: int, aware: bool, device: str,
+              passes: int = 2) -> dict:
+    """Every plan through ``DistributedEngine`` on a ``SPMD_MESH`` mesh on
+    ``device``, ``passes`` times; per query the last pass's result, time
+    (host clock, closed by a device sync) and host syncs.  A plan with the
+    planner's variable-predicate fallback is skipped, with its reason; any
+    other failure raises."""
+    import torch
+    from repro_torch.engine.distributed import DistributedEngine
+    from repro_torch.launch.mesh import make_test_mesh
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    eng = DistributedEngine(fed, make_test_mesh(SPMD_MESH, device=device),
+                            cap=cap, partition_aware=aware)
+    sync()
+    if eng.tables.device.type != torch.device(device).type:
+        raise AssertionError(f"the engine's tables are on {eng.tables.device}")
+    run = dict(engine_s=time.perf_counter() - t0, table_cap=eng.table_cap,
+               table_bytes=eng.tables.numel() * eng.tables.element_size(),
+               results={}, first={}, ms={}, first_ms={}, syncs={}, skipped={})
+    for p in range(passes):
+        for q, plan in zip(queries, plans):
+            if plan.fallback:
+                run["skipped"][q.name] = "fallback: variable predicate"
+                continue
+            s0 = eng.host_syncs
+            sync()
+            t1 = time.perf_counter()
+            res = eng.execute(plan)
+            sync()
+            ms = (time.perf_counter() - t1) * 1e3
+            if p == 0:
+                run["first_ms"][q.name] = ms
+                run["first"][q.name] = res
+            run["ms"][q.name] = ms
+            run["syncs"][q.name] = eng.host_syncs - s0
+            run["results"][q.name] = res
+    return run
+
+
+def _same_results(got: dict, want: dict, what: str) -> None:
+    """Rows (columns, order, dtype, bytes) and ``DistMetrics`` equal."""
+    if list(got) != list(want):
+        raise AssertionError(f"spmd {what}: other queries ran")
+    for name, res in got.items():
+        ref = want[name]
+        if list(res.rows) != list(ref.rows) or any(
+                res.rows[v].dtype != ref.rows[v].dtype
+                or res.rows[v].tobytes() != ref.rows[v].tobytes()
+                for v in res.rows) or res.metrics != ref.metrics:
+            raise AssertionError(f"spmd {what}: {name} differs")
+
+
+def phase_spmd(state: dict) -> None:
+    """The SPMD executor on the card, the whole ``(9, 4)`` mesh resident:
+    (a) the ``fedbench`` phase's federation and card plans, the build side
+    gathered over the whole mesh and then partition-aware; (b) FedBench at
+    scale 10, planned on the card; (c) the ``baselines`` phase's Odyssey
+    plans.  No result overflows; the answers of (a) and (c) equal
+    ``naive_evaluate`` (which the host engine's equal).  The CPU port's runs
+    of (a) and (b) are in ``check_spmd``, outside the counted window."""
+    import torch
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.rdf.generator import (fedbench_like_spec,
+                                           generate_federation,
+                                           generate_workload)
+
+    t0 = time.perf_counter()
+    fed_a = state["fedbench_fs"][0]
+    _, q_a, _, plans_a = state["fedbench_run"]
+    want_a, _ = state["fedbench_spmd"]
+    fed_c, _, q_c, want_c, dp_plans = state["baselines_run"]
+    fed_b, gt_b = generate_federation(fedbench_like_spec(scale=SPMD_SCALE))
+    stats_b = build_federated_stats(fed_b)
+    q_b = generate_workload(fed_b, gt_b, seed=5)
+    setup_b_s = time.perf_counter() - t0
+    opt_b = OdysseyOptimizer(stats_b)                 # torch DP on cuda
+    if (opt_b.dp_backend, opt_b.device) != ("torch", DEVICE):
+        raise AssertionError("the default optimizer must run on cuda")
+    t1 = time.perf_counter()
+    plans_b = [opt_b.optimize(q) for q in q_b]
+    plan_b_s = time.perf_counter() - t1
+    inputs = {"a_gather": (fed_a, q_a, plans_a, want_a),
+              "a_aware": (fed_a, q_a, plans_a, want_a),
+              "b": (fed_b, q_b, plans_b, None),
+              "c": (fed_c, q_c, dp_plans["Odyssey"], want_c)}
+    runs = {}
+    for cell, cap, aware, _ in SPMD_CELLS:
+        fed, qs, plans, want = inputs[cell]
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = _spmd_run(fed, qs, plans, cap, aware, DEVICE)
+        run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        run["memory_allocated_before"] = mem0
+        _same_results(run["results"], run.pop("first"), f"{cell}: the passes")
+        for i, q in enumerate(qs):
+            res = run["results"].get(q.name)
+            if res is None:
+                continue
+            if res.metrics.overflowed:
+                raise AssertionError(f"spmd {cell}: {q.name} overflowed")
+            if want is not None and answer_set(res, q) != want[i]:
+                raise AssertionError(f"spmd {cell}: {q.name}: answers differ "
+                                     f"from the oracle")
+        runs[cell] = run
+    state["spmd_run"] = (inputs, runs)
+    state["spmd"] = dict(seconds=time.perf_counter() - t0, setup_b_s=setup_b_s,
+                         plan_b_s=plan_b_s, triples_b=fed_b.total_triples())
+
+
+def _spmd_trace(fed, plans, cap: int, aware: bool) -> dict:
+    """One warm pass of the cell's plans under ``torch.profiler``: the
+    kernels' summed device time against the pass's host-clock time (the
+    device's busy share), and the operators and kernels that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.distributed import DistributedEngine
+    from repro_torch.launch.mesh import make_test_mesh
+
+    eng = DistributedEngine(fed, make_test_mesh(SPMD_MESH, device=DEVICE),
+                            cap=cap, partition_aware=aware)
+    run = [p for p in plans if not p.fallback]
+    for plan in run:
+        eng.execute(plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for plan in run:
+            eng.execute(plan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    ops = {a.key: a.self_device_time_total / 1e3 for a in prof.key_averages()
+           if a.device_type == DeviceType.CPU and a.self_device_time_total > 0}
+    device_ms = sum(kernels.values())
+
+    def top(d):
+        return sorted(([k[:80], v] for k, v in d.items()), key=lambda kv: -kv[1])[:8]
+
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if wall_ms else None,
+                kernel_launches=sum(1 for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA),
+                top_ops_ms=top(ops), top_kernels_ms=top(kernels))
+
+
+def check_spmd(state: dict) -> None:
+    """The card's rows and ``DistMetrics`` of (a) and (b) against the CPU
+    port's at the same mesh and ``cap``; then one line per cell, with the
+    host engine's times on the same plans for (a) and (c)."""
+    inputs, runs = state.pop("spmd_run")
+    _, host_a = state.pop("fedbench_spmd")
+    host_c = state.pop("baselines_odyssey")
+    for cell, cap, aware, on_cpu in SPMD_CELLS:
+        fed, qs, plans, want = inputs[cell]
+        run = runs[cell]
+        cpu_s = None
+        if on_cpu:
+            t0 = time.perf_counter()
+            cpu = _spmd_run(fed, qs, plans, cap, aware, "cpu", passes=1)
+            cpu_s = time.perf_counter() - t0
+            _same_results(run["results"], cpu["results"], f"{cell}: card vs cpu")
+        res = run.pop("results")
+        m = {k: r.metrics for k, r in res.items()}
+        line = dict(
+            cell=cell, mesh=list(SPMD_MESH), cap=cap, partition_aware=aware,
+            table_cap=run["table_cap"], table_bytes=run["table_bytes"],
+            triples=fed.total_triples(), queries=len(qs), run=len(res),
+            skipped=run["skipped"],
+            transferred_tuples=sum(x.transferred_tuples for x in m.values()),
+            collective_bytes=sum(x.collective_bytes for x in m.values()),
+            overflowed=sum(x.overflowed for x in m.values()),
+            oracle="naive_evaluate" if want is not None else "cpu port",
+            rows_equal_cpu=on_cpu, cpu_s=cpu_s,
+            warm_ms_total=sum(run["ms"].values()),
+            first_ms_total=sum(run["first_ms"].values()),
+            host_syncs_total=sum(run["syncs"].values()),
+            engine_s=run["engine_s"],
+            max_memory_allocated=run["max_memory_allocated"],
+            memory_allocated_before=run["memory_allocated_before"],
+            per_query={k: dict(warm_ms=run["ms"][k], host_syncs=run["syncs"][k],
+                               transferred_tuples=m[k].transferred_tuples,
+                               rows=len(next(iter(res[k].rows.values()), ())))
+                       for k in res},
+            nvidia_smi=state["smi"])
+        if cell.startswith("a"):
+            line["host_exec_ms_total"] = sum(host_a[k] for k in res)
+            for k in res:
+                line["per_query"][k]["host_exec_ms"] = host_a[k]
+        if cell in ("a_aware", "b"):
+            line["trace"] = _spmd_trace(fed, plans, cap, aware)
+        if cell == "c":
+            line["host_exec_ms_total"] = sum(host_c[k]["exec_ms"] for k in res)
+            for k in res:
+                line["per_query"][k]["host_exec_ms"] = host_c[k]["exec_ms"]
+                line["per_query"][k]["host_ntt"] = host_c[k]["ntt"]
+            line["named"] = {k: line["per_query"][k] for k in SPMD_NAMED}
+        emit("spmd", **line)
+    emit("spmd", cell="all", **state["spmd"])
 
 
 # --------------------------------------------------------------------------
@@ -2952,6 +3209,7 @@ def main() -> int:
     phase_stats(state)
     phase_baselines(state)
     phase_failover(state)
+    phase_spmd(state)
     launches = dict(build.LAUNCHES)
     check_fedbench(state)
     check_query_serve(state)
@@ -2959,6 +3217,7 @@ def main() -> int:
     check_stats(state)
     check_baselines(state)
     check_failover(state)
+    check_spmd(state)
     build.reset_launches()
     phase_lm(state)
     state["main_launches"] = {k: launches.get(k, 0) + v

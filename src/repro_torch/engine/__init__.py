@@ -1,3 +1,10 @@
+from repro_torch.engine.distributed import (
+    AlgebraFallbackWarning,
+    DistMetrics,
+    DistributedEngine,
+    DistRelation,
+    UnsupportedShapeError,
+)
 from repro_torch.engine.local import (
     ExecutionMetrics,
     ExecutionResult,
@@ -13,6 +20,11 @@ from repro_torch.engine.pipeline import (
 )
 
 __all__ = [
+    "DistributedEngine",
+    "DistMetrics",
+    "DistRelation",
+    "AlgebraFallbackWarning",
+    "UnsupportedShapeError",
     "LocalEngine",
     "ExecutionMetrics",
     "ExecutionResult",

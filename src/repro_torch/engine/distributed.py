@@ -1,0 +1,375 @@
+"""Distributed federation executor: the paper's endpoint/engine architecture
+mapped onto a ``(data, model)`` mesh (``repro_torch.launch.mesh``).
+
+Layout
+------
+* ``data`` axis  = federation endpoints (one source per data shard; the mesh
+  is the federation).
+* ``model`` axis = intra-endpoint parallelism: each source's triples are
+  **hash-partitioned by subject** across the model axis, so star-shaped
+  subqueries (subject joins) execute entirely shard-locally -- the paper's
+  "subqueries evaluated at the endpoint" invariant, in SPMD form.
+
+Every sharded tensor carries the two axes as its leading dimensions,
+``(d, m, ...)``, and each step runs the bounded-buffer operators
+(``operators.py``) once over all shards.  Cross-star joins exchange rows by
+join-key hash over the model axis (``Mesh.all_to_all``) and gather the build
+side over the data axis (``Mesh.all_gather``) -- the *transferred tuples* of
+the paper are the rows these collectives move, which is what Odyssey's
+optimizer minimizes.  Only the mesh knows where the shards live.
+
+All relations are bounded buffers; overflow flags are summed up to the
+host, which reads them after every star and join.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.decomposition import decompose
+from repro_torch.core.planner import JoinPlanNode, PhysicalPlan, PlanNode, SubqueryNode
+from repro_torch.engine import operators as ops
+from repro_torch.engine.local import ExecutionResult, LocalEngine
+from repro_torch.launch.mesh import Mesh
+from repro_torch.query.algebra import BGPQuery, TriplePattern, Var
+from repro_torch.rdf.dataset import Federation
+
+
+class AlgebraFallbackWarning(UserWarning):
+    """The SPMD engine received an OPTIONAL/UNION/FILTER plan and degraded it
+    to ``LocalEngine`` instead of failing (``ExecutionResult.fallback`` names
+    the substitution).  Filterable: the fallback changes *where* the plan
+    runs, never its rows."""
+
+
+class UnsupportedShapeError(ValueError):
+    """The federation or the plan does not fit the SPMD engine: more sources
+    than data shards, a merged leaf on the single-star path, or a cartesian
+    join.  Callers that run a workload skip the plan."""
+
+
+def _has_algebra_nodes(node: PlanNode) -> bool:
+    """True iff the plan tree contains any non-conjunctive operator (the
+    forms ``_eval_node`` deliberately rejects)."""
+    if isinstance(node, SubqueryNode):
+        return False
+    if isinstance(node, JoinPlanNode):
+        return _has_algebra_nodes(node.left) or _has_algebra_nodes(node.right)
+    return True
+
+
+@dataclass
+class DistRelation:
+    """Host handle to a sharded bounded relation."""
+
+    data: torch.Tensor       # (d, m, cap, C) int32
+    valid: torch.Tensor      # (d, m, cap) bool
+    overflow: torch.Tensor   # (d, m) bool, or (1, 1) after an exchange
+    columns: list[str]       # var name per column
+    partitioned_by: str | None = None  # var whose hash partitions the model axis
+    # secondary join keys (column pairs), filtered host-side at collect
+    extra_eq: list = field(default_factory=list)
+
+
+@dataclass
+class DistMetrics:
+    transferred_tuples: int = 0
+    collective_bytes: int = 0
+    overflowed: bool = False
+
+
+def _enc_pattern(tp: TriplePattern) -> list[int]:
+    s, p, o = tp.constants()
+    return [s if s is not None else -1, p if p is not None else -1,
+            o if o is not None else -1]
+
+
+class DistributedEngine:
+    """Executes PhysicalPlans on a (data, model) mesh.
+
+    ``cap`` bounds each operator's output rows *per shard*.  The tables and
+    every relation live on ``mesh.device``; ``host_syncs`` counts the reads
+    back to the host (the overflow flags and shipped counts after each star
+    and join, and the collected result).
+    """
+
+    def __init__(self, fed: Federation, mesh: Mesh, cap: int = 2048,
+                 table_cap: int | None = None, partition_aware: bool = False):
+        # partition_aware: skip the model-axis gather of the build side when
+        # it is already hash-partitioned by the join key (baseline engines
+        # gather unconditionally)
+        self.partition_aware = partition_aware
+        self.fed = fed
+        self.mesh = mesh
+        self.cap = cap
+        self.d = mesh.shape["data"]
+        self.m = mesh.shape["model"]
+        if len(fed.sources) > self.d:
+            raise UnsupportedShapeError(
+                f"one endpoint per data shard: {len(fed.sources)} sources on "
+                f"{self.d} data shards")
+        if table_cap is None:
+            table_cap = 1
+            for src in fed.sources:
+                counts = np.bincount(src.table.s % self.m, minlength=self.m) if len(src.table) else np.zeros(1, np.int64)
+                table_cap = max(table_cap, int(counts.max()))
+            table_cap = int(2 ** np.ceil(np.log2(table_cap)))
+        self.table_cap = table_cap
+
+        tables = np.zeros((self.d, self.m, table_cap, 3), np.int32)
+        trow = np.zeros((self.d, self.m, table_cap), bool)
+        for sid, src in enumerate(fed.sources):
+            t = src.table
+            part = t.s % self.m
+            for mm in range(self.m):
+                rows = np.nonzero(part == mm)[0]
+                k = min(len(rows), table_cap)
+                tables[sid, mm, :k, 0] = t.s[rows[:k]]
+                tables[sid, mm, :k, 1] = t.p[rows[:k]]
+                tables[sid, mm, :k, 2] = t.o[rows[:k]]
+                trow[sid, mm, :k] = True
+        self.tables = torch.from_numpy(tables).to(mesh.device)
+        self.trow = torch.from_numpy(trow).to(mesh.device)
+        self._star_fns: dict = {}
+        self.host_syncs = 0
+
+    def _host(self, x: torch.Tensor) -> np.ndarray:
+        self.host_syncs += 1
+        return x.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # SPMD steps, each over all (d, m) shards at once
+    # ------------------------------------------------------------------
+    def _star_fn(self, n_pat: int):
+        """Scan + subject-join ``n_pat`` patterns of one star, shard-local.
+
+        Output columns: [subject, obj_0, ..., obj_{n_pat-1}].
+        """
+        if n_pat in self._star_fns:
+            return self._star_fns[n_pat]
+        cap = self.cap
+
+        def star(tables, trow, patterns, source_on):
+            trow = trow & source_on.unsqueeze(-1)
+            rel, valid, ovf = ops.scan_pattern(tables, trow, patterns[:, :, 0],
+                                               cap, (0, 2))
+            for k in range(1, n_pat):
+                nxt, nvalid, o2 = ops.scan_pattern(tables, trow, patterns[:, :, k],
+                                                   cap, (0, 2))
+                rel, valid, o3 = ops.merge_join(rel, valid, 0, nxt, nvalid, 0, cap)
+                # drop duplicated subject col from right side (at ncols_left)
+                keep = list(range(rel.shape[-1]))
+                keep.remove(k + 1)
+                rel = rel[..., keep]
+                ovf = ovf | o2 | o3
+            return rel, valid, ovf, ops.count_valid(valid)
+
+        self._star_fns[n_pat] = star
+        return star
+
+    def _exchange_fn(self, right_partitioned: bool = False):
+        """Repartition rows over the model axis by hash of a key column, then
+        merge-join against a local build side: the distributed hash join.
+
+        ``right_partitioned``: the build side is already hash-partitioned by
+        its join key over the model axis (true when joining a star on its
+        subject), so the model-axis gather is skipped -- m x fewer build
+        rows moved."""
+        key = ("exch", right_partitioned)
+        if key in self._star_fns:
+            return self._star_fns[key]
+        cap, d, m, mesh = self.cap, self.d, self.m, self.mesh
+
+        def exchange(lrel, lvalid, rrel, rvalid, lkey, rkey):
+            ncols = lrel.shape[-1]
+            dev = lrel.device
+            # --- exchange left rows by key % m over the model axis ---------
+            keyv = lrel[..., lkey]
+            dest = torch.where(lvalid, keyv % m, m)  # m = drop bucket
+            bucket_cap = cap // m
+            order = torch.argsort(dest, dim=-1, stable=True)
+            sorted_dest = ops.take(dest, order)
+            idx_in_dest = (torch.arange(cap, device=dev)
+                           - ops.searchsorted(sorted_dest, sorted_dest, "left"))
+            ovf = torch.where(sorted_dest < m, idx_in_dest, 0).amax(-1) >= bucket_cap
+            slot = idx_in_dest.clamp(0, bucket_cap - 1)
+            row_ok = (sorted_dest < m) & (idx_in_dest < bucket_cap)
+            # rows that are not sent go to one spare row past the buffers;
+            # the (destination, slot) pairs of the rest are unique
+            shard = torch.arange(d * m, device=dev).reshape(d, m, 1)
+            flat = torch.where(row_ok, (shard * m + sorted_dest) * bucket_cap + slot,
+                               d * m * m * bucket_cap)
+            send = torch.zeros(d * m * m * bucket_cap + 1, ncols,
+                               dtype=torch.int32, device=dev)
+            send.index_put_((flat.reshape(-1),), ops.take_rows(lrel, order).reshape(-1, ncols))
+            svalid = torch.zeros(d * m * m * bucket_cap + 1, dtype=torch.bool, device=dev)
+            svalid.index_put_((flat.reshape(-1),), row_ok.reshape(-1))
+            send = send[:-1].reshape(d, m, m, bucket_cap, ncols)
+            svalid = svalid[:-1].reshape(d, m, m, bucket_cap)
+            shipped = svalid.sum((-2, -1), dtype=torch.int32)
+            recv = mesh.all_to_all(send, "model")
+            vrecv = mesh.all_to_all(svalid, "model")
+            lrel2 = recv.reshape(d, m, -1, ncols)[:, :, :cap]
+            lvalid2 = vrecv.reshape(d, m, -1)[:, :, :cap]
+            # --- gather the build side across the federation ---------------
+            if right_partitioned:
+                # build rows already live on the model shard of their key:
+                # gather over sources (data) only -- m x fewer rows
+                rrel_g = mesh.all_gather(rrel, ("data",))
+                rvalid_g = mesh.all_gather(rvalid, ("data",))
+            else:
+                rrel_g = mesh.all_gather(rrel, ("model", "data"))
+                rvalid_g = mesh.all_gather(rvalid, ("model", "data"))
+                # keep only build rows whose key hashes to this model shard
+                my = mesh.axis_index("model").unsqueeze(-1)
+                rvalid_g = rvalid_g & ((rrel_g[..., rkey] % m) == my)
+            shipped = shipped + rvalid.sum(-1, dtype=torch.int32)
+            out, ovalid, o2 = ops.merge_join(lrel2, lvalid2, lkey, rrel_g,
+                                             rvalid_g, rkey, cap)
+            shipped_total = mesh.psum(shipped, ("model", "data"))
+            ovf_any = mesh.psum((ovf | o2).to(torch.int32), ("model", "data")) > 0
+            return out, ovalid, ovf_any, shipped_total
+
+        self._star_fns[key] = exchange
+        return exchange
+
+    def _collect_fn(self, ncols: int):
+        """Gather a sharded relation to every shard (replicated result)."""
+        key = ("collect", ncols)
+        if key in self._star_fns:
+            return self._star_fns[key]
+        mesh = self.mesh
+
+        def collect(rel, valid):
+            return (mesh.all_gather(rel, ("model", "data")),
+                    mesh.all_gather(valid, ("model", "data")))
+
+        self._star_fns[key] = collect
+        return collect
+
+    # ------------------------------------------------------------------
+    # plan execution
+    # ------------------------------------------------------------------
+    def _eval_star(self, node: SubqueryNode, metrics: DistMetrics) -> DistRelation:
+        if len(node.stars) != 1:
+            raise UnsupportedShapeError("merged leaves run on the exclusive path")
+        pats = [tp for tp in node.patterns if not isinstance(tp.p, Var)]
+        n_pat = len(pats)
+        enc = np.full((n_pat, 3), -1, np.int32)
+        for k, tp in enumerate(pats):
+            enc[k] = _enc_pattern(tp)
+        src_on = np.zeros((self.d, self.m), bool)
+        for s in node.sources:
+            src_on[s] = True
+        dev = self.mesh.device
+        rel, valid, ovf, _ = self._star_fn(n_pat)(
+            self.tables, self.trow,
+            torch.from_numpy(enc).to(dev).expand(self.d, self.m, n_pat, 3),
+            torch.from_numpy(src_on).to(dev))
+        metrics.overflowed |= bool(self._host(ovf.any()))
+        subj = pats[0].s.name if isinstance(pats[0].s, Var) else f"_c{id(node)}"
+        cols = [subj] + [tp.o.name if isinstance(tp.o, Var) else f"_o{k}"
+                         for k, tp in enumerate(pats)]
+        return DistRelation(rel, valid, ovf, cols, partitioned_by=subj)
+
+    def _eval_node(self, node: PlanNode, metrics: DistMetrics) -> DistRelation:
+        if isinstance(node, SubqueryNode):
+            if len(node.stars) == 1:
+                return self._eval_star(node, metrics)
+            # exclusive group ("single SPARQL query to one endpoint", §3.4):
+            # evaluate each star then join; rows stay within the source.
+            return self._join_merged_leaf(node, metrics)
+        if not isinstance(node, JoinPlanNode):
+            raise NotImplementedError(
+                f"the SPMD engine executes conjunctive (Subquery/Join) plans "
+                f"only; got {type(node).__name__} -- run OPTIONAL/UNION/FILTER "
+                "plans on repro_torch.engine.local.LocalEngine")
+        left = self._eval_node(node.left, metrics)
+        right = self._eval_node(node.right, metrics)
+        return self._join(left, right, node.join_vars, metrics)
+
+    def _join_merged_leaf(self, node: SubqueryNode, metrics: DistMetrics) -> DistRelation:
+        graph = decompose(BGPQuery(list(node.patterns)))
+        rels: list[DistRelation] = []
+        for star in graph.stars:
+            sub = SubqueryNode(stars=[0], patterns=star.patterns, sources=node.sources)
+            rels.append(self._eval_star(sub, metrics))
+        out = rels[0]
+        for r in rels[1:]:
+            jv = sorted(set(out.columns) & set(r.columns))
+            out = self._join(out, r, jv, metrics)
+        return out
+
+    def _join(self, left: DistRelation, right: DistRelation, join_vars: list[str],
+              metrics: DistMetrics) -> DistRelation:
+        if not join_vars:
+            raise UnsupportedShapeError("cartesian joins not supported in the SPMD engine")
+        jv = join_vars[0]
+        lkey = left.columns.index(jv)
+        rkey = right.columns.index(jv)
+        right_part = self.partition_aware and right.partitioned_by == jv
+        rel, valid, ovf, shipped = self._exchange_fn(right_partitioned=right_part)(
+            left.data, left.valid, right.data, right.valid, lkey, rkey)
+        # one read for both: the overflow flag and the shipped count
+        ovf_any, n_ship = self._host(
+            torch.stack([ovf.reshape(()).to(torch.int32), shipped.reshape(())])).tolist()
+        metrics.overflowed |= bool(ovf_any)
+        metrics.transferred_tuples += n_ship
+        metrics.collective_bytes += n_ship * 4 * (len(left.columns) + len(right.columns))
+        cols = left.columns + right.columns
+        # dedupe duplicated join columns by renaming right dup
+        seen: dict[str, int] = {}
+        final_cols = []
+        for c in cols:
+            if c in seen:
+                final_cols.append(f"{c}__dup{seen[c]}")
+                seen[c] += 1
+            else:
+                seen[c] = 1
+                final_cols.append(c)
+        # secondary join keys: filter equality host-side at collect (rare)
+        extra_eq = [(cols.index(v), len(left.columns) + right.columns.index(v))
+                    for v in join_vars[1:]]
+        return DistRelation(rel, valid, ovf, final_cols, partitioned_by=jv,
+                            extra_eq=extra_eq)
+
+    def execute(self, plan: PhysicalPlan) -> ExecutionResult:
+        if _has_algebra_nodes(plan.root):
+            # degrade, don't die: the SPMD steps are conjunctive-only
+            # (``_eval_node`` still raises -- that contract is pinned), so
+            # OPTIONAL/UNION/FILTER plans run on the host engine with the
+            # substitution named on the result instead of surfacing a bare
+            # NotImplementedError to serving code
+            warnings.warn(
+                "SPMD engine received an OPTIONAL/UNION/FILTER plan; "
+                "degrading to LocalEngine (result.fallback = "
+                "'local:algebra'; rows are identical, DistMetrics are not "
+                "collected)", AlgebraFallbackWarning, stacklevel=2)
+            res = LocalEngine(self.fed).execute(plan)
+            return dataclasses.replace(res, fallback="local:algebra")
+        metrics = DistMetrics()
+        rel = self._eval_node(plan.root, metrics)
+        data, valid = self._collect_fn(len(rel.columns))(rel.data, rel.valid)
+        data = self._host(data).reshape(-1, len(rel.columns))
+        valid = self._host(valid).reshape(-1)
+        rows = data[valid]
+        for (i, j) in rel.extra_eq:
+            rows = rows[rows[:, i] == rows[:, j]]
+        proj = plan.query.effective_projection()
+        out: dict[str, np.ndarray] = {}
+        for v in proj:
+            out[v] = rows[:, rel.columns.index(v)]
+        if plan.query.distinct and len(rows):
+            stacked = np.stack([out[v] for v in proj], axis=1)
+            _, idx = np.unique(stacked, axis=0, return_index=True)
+            out = {v: out[v][np.sort(idx)] for v in proj}
+        return ExecutionResult(rows=out, metrics=metrics, plan=plan,
+                               stats_epoch=plan.stats_epoch)
+
+
+def _star_subject(tp: TriplePattern):
+    return tp.s

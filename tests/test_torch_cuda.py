@@ -888,3 +888,35 @@ def test_failover_session_on_card_equals_numpy(dev, salvage):
         n = len(next(iter(r.rows.values()))) if r.rows else 0
         got = set(zip(*[r.rows[v].tolist() for v in proj])) if n else set()
         assert not r.partial and got == naive_evaluate(fed, q)
+
+
+@pytest.mark.parametrize("aware", [False, True])
+@pytest.mark.parametrize("which,mesh", [("selftest", (4, 2)), ("tiny", (9, 4))])
+def test_spmd_engine_on_card_equals_cpu(dev, which, mesh, aware):
+    """The SPMD executor with the whole mesh on the card (its default)
+    gives the CPU port's rows (order, dtype) and ``DistMetrics`` per plan,
+    and the same skipped plans; the CPU port is held to the reference by
+    ``tests/test_torch_distributed.py``."""
+    from test_torch_distributed import federation, run_case
+
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.engine.distributed import (DistributedEngine,
+                                                UnsupportedShapeError)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.rdf import generator as G
+
+    fed, queries = federation(G, which, mesh[0])
+    opt = OdysseyOptimizer(build_federated_stats(fed), dp_backend="numpy")
+    card = DistributedEngine(fed, make_test_mesh(mesh), cap=4096,
+                             partition_aware=aware)
+    assert card.tables.is_cuda and card.trow.is_cuda
+    cpu = DistributedEngine(fed, make_test_mesh(mesh, device="cpu"), cap=4096,
+                            partition_aware=aware)
+    (got_meta, got), (want_meta, want) = (
+        run_case(queries, opt, eng, UnsupportedShapeError) for eng in (card, cpu))
+    assert got_meta == want_meta
+    assert any("metrics" in e and e["metrics"][0] > 0 for e in got_meta.values())
+    assert got.keys() == want.keys()
+    for k in got:
+        assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k

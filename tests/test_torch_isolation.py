@@ -166,3 +166,22 @@ def test_failover_and_baseline_entry_points_default_to_the_card():
     assert {"ft/resilience.py", "ft/failover.py", "stats/void.py",
             "query/sparql.py", "baselines/fedx.py", "baselines/hibiscus.py",
             "baselines/void_dp.py", "baselines/hybrids.py"} <= names
+
+
+def test_spmd_entry_points_default_to_the_card():
+    """The meshes, and so ``DistributedEngine`` (its tables and relations
+    live on ``mesh.device``) and the self-test, run on the card unless the
+    caller asks for the CPU."""
+    from repro_torch.engine.distributed import DistributedEngine
+    from repro_torch.launch import dist_selftest
+    from repro_torch.launch import mesh as M
+
+    for fn in (M.make_test_mesh, M.make_production_mesh, M.Mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert "to(mesh.device)" in inspect.getsource(DistributedEngine.__init__)
+    assert 'add_argument("--device", default="cuda")' in inspect.getsource(
+        dist_selftest.main)
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"engine/operators.py", "engine/distributed.py", "launch/__init__.py",
+            "launch/mesh.py", "launch/dist_selftest.py"} <= names
