@@ -5,7 +5,7 @@
 
 Each phase prints one JSON line:
 
-``build``       compile the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+``build``       compile the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a (into the ignored ``build/kernels/``),
                 one nvcc per source, all started together;
 ``kernels``     each kernel against its plain PyTorch version on the card,
@@ -125,11 +125,35 @@ Each phase prints one JSON line:
                 logits held to the prefill run's, and each LM kernel against
                 its plain version at the main path's full-width shapes, with
                 device times, bounds and a library yardstick; the scan also
-                at the longest prompt.
+                at the longest prompt;
+``train``       LM training at full published width, float32, TF32 off,
+                weights drawn on the card from a seeded generator, through
+                the port's launcher (``repro_torch.launch.train``): (a)
+                ``qwen2-0.5b`` (24 layers, 494 M params), AdamW, remat,
+                batch 4 x 512 tokens, 8 steps, a checkpoint at steps 4 and
+                8; (b) ``falcon-mamba-7b`` at full width cut to 8 of its 64
+                layers (1.38 G params; ``depth_cut`` says why), Adafactor,
+                two microbatches, int8 gradient compression, batch 2 x 512,
+                6 steps.  Every attention layer runs the flash kernel and its
+                backward kernel, every Mamba layer the scan and its backward
+                kernel.  Then, outside the counted window: the launches
+                against what remat predicts (two forwards and one backward
+                per layer and microbatch step), finite losses whose last
+                three steps beat the first three, (a) restarted from its
+                step-4 checkpoint with steps 4-7 replayed (``rtol`` 1e-5),
+                (b) trained again with both kernels routed to their plain
+                versions (each step's loss within 1e-3 relative), one
+                step's gradients of the kernel path against the plain
+                path per leaf (within 1e-3 of each leaf's largest; (a) at
+                full depth, (b) at 2 layers of full width; every leaf
+                gets one), and each backward kernel against autograd through
+                its plain version at the main path's shapes, two launches
+                bit-identical, with device times, bounds and (flash) the
+                time of ``scaled_dot_product_attention``'s backward.
 
 The main paths are ``fedbench``, ``query_serve``, ``large_star``,
 ``stats``, ``baselines``, ``failover`` and ``spmd`` running once, then
-``lm``, each
+``lm``, then ``train``, each
 window with the launch counts set to 0 just before and read just after;
 the kernel checks, all timings and the plan comparisons with the numpy
 backend (but ``query_serve``'s, which launch nothing) run outside those
@@ -145,6 +169,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2858,17 +2883,16 @@ def _compare_serving(got, want) -> "tuple[int, float]":
     return ties, worst
 
 
-def _layer0_flash_inputs(cfg, params, prompt):
-    """The rope'd q, k, v of layer 0 on ``prompt`` (the flash kernel's
-    main-path inputs at that length)."""
+def _layer0_flash_inputs(cfg, params, toks):
+    """The rope'd q, k, v of layer 0 on the token rows ``toks`` (B, S) (the
+    flash kernel's main-path inputs at that shape)."""
     import torch
 
     from repro_torch.models import layers as L
 
-    toks = torch.tensor([prompt], device=DEVICE)
     lp = params["layers"][0]
     h = L.rmsnorm(params["embed"][toks], lp["mixer_norm"], cfg.norm_eps)
-    pos = torch.arange(len(prompt), device=DEVICE)[None]
+    pos = torch.arange(toks.shape[1], device=toks.device)[None]
     return L._project_qkv(lp["mixer"], cfg, h, pos)
 
 
@@ -2936,7 +2960,8 @@ def check_lm(state: dict) -> None:
                 "bound_route")}
             kernels["ssm_scan"] = row
         else:
-            q, k, v = _layer0_flash_inputs(cfg, params, longest)
+            q, k, v = _layer0_flash_inputs(
+                cfg, params, torch.tensor([longest], device=DEVICE))
             kernels["flash_attention"] = _check_flash(q, k, v, FA, F)
         del params, done, plain
         gc.collect()
@@ -3097,6 +3122,439 @@ def _exp_shared_s(instr: int, exps: int) -> float:
                (1 - share) * exps / EXP_PER_S)
 
 
+# --------------------------------------------------------------------------
+# train: LM training at full published width
+# --------------------------------------------------------------------------
+
+# (cell, arch, layers kept (None: all), launcher flags); float32 weights
+# drawn on the card from --seed, TF32 off as in the lm phase
+TRAIN_CELLS = (
+    ("a", "qwen2-0.5b", None,
+     ["--optimizer", "adamw", "--batch", "4", "--seq", "512", "--steps", "8",
+      "--ckpt-every", "4", "--lr", "3e-4"]),
+    ("b", "falcon-mamba-7b", 8,
+     ["--optimizer", "adafactor", "--microbatches", "2", "--compress-grads",
+      "--batch", "2", "--seq", "512", "--steps", "6", "--lr", "1e-4",
+      "--ckpt-every", "100"]))
+TRAIN_SEED = 0
+TRAIN_REPLAY_FROM = 4       # cell (a)'s checkpoint the second run restores
+TRAIN_RTOL = 1e-5           # tests/test_train_restart.py's replay tolerance
+TRAIN_GRAD_REL = 1e-3       # kernel-path gradients: 1e-3 * max|plain leaf|
+# cell (b) trained a second time on the plain path: how near that run's
+# losses stay to the kernel path's, step by step
+TRAIN_PLAIN_RTOL = 1e-3
+# depth of the gradient check (None: the published depth)
+TRAIN_GRAD_LAYERS = {"a": None, "b": 2}
+BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # times max(1, max|want|)
+TRAIN_KERNELS = (
+    ("flash_attention_bwd", "src/repro/kernels/flash_attention.py:79"),
+    ("ssm_scan_bwd", "src/repro/kernels/ssm_scan.py:64"))
+# keys of a backward kernel's row carried into the summary line
+TRAIN_EXTRA_KEYS = ("shape", "deterministic", "bound_route",
+                    "fp32_cuda_core_bound_ms", "bf16_ms", "bf16_library_ms",
+                    "bf16_bound_ms", "bf16_max_abs_err")
+DEPTH_CUT_WHY = ("the float32 params, gradients, microbatch sum and error "
+                 "feedback of all 64 layers (7.27 G params) take 116 GB; "
+                 "AdamW's state alone another 58 GB")
+
+
+def _train_cfg(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _train_argv(arch: str, flags, ckpt_dir: str) -> list:
+    return ["--arch", arch, "--seed", str(TRAIN_SEED), "--log-every", "1",
+            "--device", DEVICE, "--ckpt-dir", ckpt_dir, *flags]
+
+
+def phase_train(state: dict) -> None:
+    """Train each cell through the port's launcher once (``launch.train.
+    main``; cell (b), with its depth cut, through ``train``, the function
+    ``main`` calls), the launch counts read around each run.  The replay,
+    the gradient and kernel checks and the timings run later, in
+    ``check_train``."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import train as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    state["train"] = {}
+    for cell, arch, layers, flags in TRAIN_CELLS:
+        cfg = _train_cfg(arch, layers)
+        argv = _train_argv(arch, flags, str(root / cell))
+        args = T.parse_args(argv)
+        l0 = dict(LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = T.main(argv) if layers is None else T.train(cfg, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
+        tokens = args.batch * args.seq
+        steady = statistics.median(out["step_s"][1:])
+        state["train"][cell] = dict(
+            model=arch, layers=cfg.n_layers,
+            depth_cut=({"layers": cfg.n_layers,
+                        "published": _train_cfg(arch, None).n_layers,
+                        "why": DEPTH_CUT_WHY} if layers else False),
+            d_model=cfg.d_model, params=cfg.param_count(),
+            optimizer=args.optimizer, batch=args.batch, seq=args.seq,
+            microbatches=args.microbatches, compress=args.compress_grads,
+            steps=args.steps, losses=out["losses"], step_s=out["step_s"],
+            first_step_s=out["step_s"][0], median_step_s=steady,
+            tokens_per_step=tokens, steady_tokens_per_s=tokens / steady,
+            window_tokens_per_s=tokens * len(out["step_s"]) / wall,
+            wall_s=wall, peak_device_bytes=peak, launches=launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _predicted_launches(cfg, row: dict) -> dict:
+    """Launches of the training kernels that ``remat`` predicts: per layer
+    of the kernel's kind and microbatch step, two forwards (the step's and
+    the recomputation's) and one backward."""
+    micro_steps = row["steps"] * row["microbatches"]
+    kind = "ssm_scan" if cfg.family == "ssm" else "flash_attention"
+    return {kind: 2 * cfg.n_layers * micro_steps,
+            kind + "_bwd": cfg.n_layers * micro_steps}
+
+
+@contextlib.contextmanager
+def _plain_path():
+    """Route the model's two kernels to their plain versions on the card
+    (autograd through them) inside the block; the port itself has no such
+    switch."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as SS
+
+    orig = (ops.flash_attention_gqa, ops.selective_scan)
+    ops.flash_attention_gqa = \
+        lambda q, k, v, causal=True, window=0: FA.flash_attention_plain(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window)
+    ops.selective_scan = lambda *args: SS.ssm_scan_plain(
+        *(t.contiguous() for t in args))
+    try:
+        yield
+    finally:
+        ops.flash_attention_gqa, ops.selective_scan = orig
+
+
+def _plain_replay(cell: str, cfg, arch: str, flags, want) -> dict:
+    """The cell's run again, on the card from the same seed, with both
+    kernels routed to their plain versions: its losses, step by step,
+    against the kernel path's ``want``.  A second witness, beside the
+    one-step gradient check, that what the losses do over the run is the
+    training's own and not the kernels'."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as T
+
+    args = T.parse_args(_train_argv(arch, flags, ""))
+    t0 = time.perf_counter()
+    with _plain_path():
+        out = T.train(cfg, args)
+    torch.cuda.synchronize()
+    got = np.asarray(out["losses"])
+    rel = np.abs(got - np.asarray(want)) / np.abs(np.asarray(want))
+    if not (rel <= TRAIN_PLAIN_RTOL).all():
+        raise AssertionError(f"train {cell}: plain path's losses {list(got)} "
+                             f"vs the kernel path's {list(want)}")
+    return {"losses": out["losses"], "rtol": TRAIN_PLAIN_RTOL,
+            "rel_diff": rel.tolist(), "max_rel_diff": float(rel.max()),
+            "seconds": time.perf_counter() - t0}
+
+
+def _grad_check(cell: str, arch: str, flags) -> "tuple[dict, dict]":
+    """One step's gradients of the kernel path against the plain path on
+    the card, per leaf, on fresh weights from the seed at the check's depth
+    and the cell's first batch; every leaf must get a gradient.  Returns
+    (the row, the layer-0 inputs of the kernels for the kernel checks)."""
+    import torch
+
+    from repro_torch.common.tree import named_leaves, path_name
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as MDL
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = _train_cfg(arch, TRAIN_GRAD_LAYERS[cell])
+    args = T.parse_args(_train_argv(arch, flags, ""))
+    params = MDL.init_params(cfg, T.param_generator(TRAIN_SEED, DEVICE),
+                             torch.float32, DEVICE)
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in
+             TokenLoader(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
+                         seed=args.seed).batch_at(0).items()}
+    t0 = time.perf_counter()
+    loss_k, _, _, gk = loss_and_grads(cfg, params, batch)
+    with _plain_path():
+        loss_p, _, _, gp = loss_and_grads(cfg, params, batch, remat=False)
+    torch.cuda.synchronize()
+    worst, missing = 0.0, []
+    for (path, a), (_, b) in zip(named_leaves(gk), named_leaves(gp)):
+        if a is None or float(a.abs().max()) == 0.0:
+            missing.append(path_name(path))
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > TRAIN_GRAD_REL:
+            raise AssertionError(f"train {cell}: gradient of "
+                                 f"{path_name(path)} off the plain path's "
+                                 f"by {rel} of its largest")
+    if missing:
+        raise AssertionError(f"train {cell}: no gradient for {missing}")
+    row = {"layers": cfg.n_layers, "leaves": len(named_leaves(gk)),
+           "worst_rel_err": worst, "tol_rel": TRAIN_GRAD_REL,
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "seconds": time.perf_counter() - t0}
+    # the kernels' main-path inputs: layer 0 on the first batch (the scan
+    # at one microbatch row)
+    with torch.no_grad():
+        if cfg.family == "ssm":
+            inputs = _layer0_scan_inputs(
+                cfg, params, batch["tokens"][0].tolist())
+        else:
+            inputs = _layer0_flash_inputs(cfg, params, batch["tokens"])
+    del params, gk, gp
+    return row, inputs
+
+
+def _check_bwd_flash(q, k, v) -> dict:
+    """``flash_attention_bwd`` against autograd through the plain version
+    at the main path's shape (float32 and bf16), two launches bit-identical,
+    with device times, the bound and SDPA's backward on the same inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = torch.from_numpy(np.random.default_rng(TRAIN_SEED + 7).normal(
+        size=q.shape).astype(np.float32)).to(q.device)
+    errs, times = {}, {}
+    for dtype, tol in BWD_TOL.items():
+        dt = getattr(torch, dtype)
+        a = [t.to(dt).contiguous() for t in (q, k, v)]
+        dout = g.to(dt)
+        out, lse = FA.flash_attention_fwd(*a)
+        got = FA.flash_attention_bwd(*a, out, dout, lse)
+        again = FA.flash_attention_bwd(*a, out, dout, lse)
+        want = FA.flash_attention_bwd_plain(*a, dout)
+        torch.cuda.synchronize()
+        for name, x, y, w in zip("qkv", got, again, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash_attention_bwd {dtype} d{name}: "
+                                     f"two launches differ")
+            scale = max(1.0, float(w.float().abs().max()))
+            err = float((x.float() - w.float()).abs().max())
+            if not (bool(torch.isfinite(x).all()) and err <= tol * scale):
+                raise AssertionError(f"flash_attention_bwd {dtype} d{name} "
+                                     f"off the plain version by {err}")
+            errs[f"{dtype}_d{name}"] = err
+        ms, queued = queued_ms(lambda: FA.flash_attention_bwd(*a, out, dout,
+                                                              lse), k=10)
+        if not queued:
+            raise AssertionError("flash_attention_bwd: the host fell behind")
+        pms, _ = queued_ms(lambda: FA.flash_attention_bwd_plain(*a, dout),
+                           k=3)
+        times[dtype] = (ms, pms, _sdpa_bwd_ms(F, a, dout))
+    visible = S * (S + 1) // 2
+    # recompute S and dO V^T, then dV, dQ and dK: five products
+    ops = 10 * B * H * hd * visible
+    nbytes = 4 * B * S * hd * (4 * H + 4 * KV) + 4 * B * H * S
+    t_b = nbytes / HBM_BYTES_PER_S
+    fp32_core = max(t_b, ops / FP32_OPS_PER_S) * 1e3
+    tf32x3 = max(t_b, 3 * ops / TF32_OPS_PER_S) * 1e3
+    bound = min(fp32_core, tf32x3)
+    (ms, pms, lms), (bms, _, blms) = times["float32"], times["bfloat16"]
+    return {"shape": [B, S, H, KV, hd],
+            "max_abs_err": max(e for n, e in errs.items() if "float32" in n),
+            "errors": errs, "deterministic": True, "kernel_ms": ms,
+            "plain_ms": pms, "library_ms": lms, "flops": ops, "bytes": nbytes,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_b * 1e3 >= bound else "operations",
+            "bound_route": ("3xTF32 tensor cores" if tf32x3 <= fp32_core
+                            else "float32 CUDA cores"),
+            "fp32_cuda_core_bound_ms": fp32_core,
+            "achieved_tflop_s": ops / ms / 1e9,
+            "bf16_ms": bms, "bf16_library_ms": blms,
+            "bf16_bound_ms": max(nbytes / 2 / HBM_BYTES_PER_S,
+                                 ops / BF16_OPS_PER_S) * 1e3,
+            "bf16_max_abs_err": max(e for n, e in errs.items()
+                                    if "bfloat16" in n)}
+
+
+def _sdpa_bwd_ms(F, a, dout) -> float:
+    """Queued device time of ``scaled_dot_product_attention``'s backward
+    alone on the same inputs (KV heads repeated beforehand; the forward
+    run once, outside the timing)."""
+    import torch
+
+    q, k, v = a
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_()
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dt = dout.transpose(1, 2).contiguous()
+    ms, queued = queued_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dt, retain_graph=True), k=10)
+    return ms if queued else None
+
+
+def _check_bwd_scan(args) -> dict:
+    """``ssm_scan_bwd`` against autograd through the plain version on the
+    main path's layer-0 inputs at falcon-mamba's width (one microbatch
+    row), two launches bit-identical, with device times and the bound (no
+    single PyTorch call computes the scan's backward)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ssm_scan as SS
+
+    dt, bt, ct, x, a = args
+    B, S, D = x.shape
+    N = bt.shape[2]
+    dy = torch.from_numpy(np.random.default_rng(TRAIN_SEED + 8).normal(
+        size=(B, S, D)).astype(np.float32)).to(x.device)
+    _, _, hc = SS.ssm_scan_fwd(*args)
+    got = SS.ssm_scan_bwd(*args, hc, dy)
+    again = SS.ssm_scan_bwd(*args, hc, dy)
+    want = SS.ssm_scan_bwd_plain(*args, dy)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, y, w in zip(("dt", "bt", "ct", "x", "a"), got, again, want):
+        if not torch.equal(g, y):
+            raise AssertionError(f"ssm_scan_bwd d{name}: two launches differ")
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        if not (bool(torch.isfinite(g).all()) and
+                err <= BWD_TOL["float32"] * scale):
+            raise AssertionError(f"ssm_scan_bwd d{name} off the plain "
+                                 f"version by {err}")
+        errs[f"d{name}"] = err
+    ms, queued = queued_ms(lambda: SS.ssm_scan_bwd(*args, hc, dy), k=20)
+    if not queued:
+        raise AssertionError("ssm_scan_bwd: the host fell behind the card")
+    pms, _ = queued_ms(lambda: SS.ssm_scan_bwd_plain(*args, dy), k=1)
+    nch = hc.shape[1]
+    # dt, x, dy read and ddt, dx written (B, S, D); bt, ct read and their
+    # gradients written (B, S, N); a read and da written (D, N); the chunk
+    # states read (B, nch, D, N)
+    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
+                  + B * nch * D * N)
+    # FP32-pipe instructions per (b, t, d, n): the state's recomputation (3)
+    # and the reverse step (11), and the sums over d of dB and dC (2),
+    # beside one exponential (kept from the recomputation)
+    instr = B * S * D * N * 16
+    exps = B * S * D * N
+    t_ops = _exp_shared_s(instr, exps)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": t_ops}
+    route = max(times, key=times.get)
+    return {"shape": [B, S, D, N], "max_abs_err": max(errs.values()),
+            "errors": errs, "deterministic": True, "kernel_ms": ms,
+            "plain_ms": pms, "library_ms": None, "bytes": nbytes,
+            "fp32_instructions": instr, "exps": exps,
+            "bound_ms": times[route] * 1e3, "bound_by": route,
+            "bounds_ms": {k: v * 1e3 for k, v in times.items()}}
+
+
+def check_train(state: dict) -> None:
+    """Outside the counted window: the launch counts against what remat
+    predicts, finite and improving losses, cell (a)'s replay from its step-4
+    checkpoint, cell (b)'s run again on the plain path, the gradient check
+    of each cell, and each backward kernel against its plain version with
+    timings."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train as T
+
+    root = ROOT / "build" / "train_ckpt"
+    kernels = {}
+    for cell, arch, layers, flags in TRAIN_CELLS:
+        row = state["train"][cell]
+        cfg = _train_cfg(arch, layers)
+        want = _predicted_launches(cfg, row)
+        got = {k: row["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"train {cell}: launches {got}, remat "
+                                 f"predicts {want}")
+        losses = np.asarray(row["losses"])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {cell}: non-finite losses {losses}")
+        row["first3"] = float(losses[:3].mean())
+        row["last3"] = float(losses[-3:].mean())
+        row["improved"] = row["last3"] < row["first3"]
+        if not row["improved"]:
+            raise AssertionError(f"train {cell}: NLL did not improve: "
+                                 f"{losses}")
+        if cell == "a":
+            ckpt = root / cell
+            for s in CheckpointManager(str(ckpt)).all_steps():
+                if s > TRAIN_REPLAY_FROM:
+                    shutil.rmtree(ckpt / f"step_{s:08d}")
+            t0 = time.perf_counter()
+            replay = T.main(_train_argv(arch, flags, str(ckpt))
+                            + ["--ckpt-every", "100"])
+            straight = row["losses"][TRAIN_REPLAY_FROM:]
+            if not np.allclose(replay["losses"], straight, rtol=TRAIN_RTOL,
+                               atol=0.0):
+                raise AssertionError(f"train a: replay {replay['losses']} "
+                                     f"vs straight {straight}")
+            row["replay"] = {"from_step": TRAIN_REPLAY_FROM,
+                             "losses": replay["losses"], "rtol": TRAIN_RTOL,
+                             "max_rel_diff": float(np.max(
+                                 np.abs(np.asarray(replay["losses"])
+                                        - straight) / np.abs(straight))),
+                             "seconds": time.perf_counter() - t0}
+        if cell == "b":
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["plain_replay"] = _plain_replay(cell, cfg, arch, flags,
+                                                row["losses"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["grad_check"], inputs = _grad_check(cell, arch, flags)
+        if cfg.family == "ssm":
+            kernels["ssm_scan_bwd"] = _check_bwd_scan(inputs)
+        else:
+            kernels["flash_attention_bwd"] = _check_bwd_flash(*inputs)
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("train", cell=cell, nvidia_smi=state["smi"], **row)
+    shutil.rmtree(root, ignore_errors=True)
+    state["train_kernels"] = kernels
+    emit("train_kernels", nvidia_smi=state["smi"], **kernels)
+
+
 def _second_input(st: dict, name: str) -> dict:
     """The summary keys of ``seg_bitmap``'s path and unordered input, and of
     ``summary_probe``'s form and large block (with the launch floor)."""
@@ -3177,7 +3635,18 @@ def summary(state: dict) -> dict:
          "library_ms": state["lm_kernels"][name]["library_ms"],
          **{k: state["lm_kernels"][name][k] for k in LM_EXTRA_KEYS
             if k in state["lm_kernels"][name]}}
-        for name, replaces in LM_KERNELS]}
+        for name, replaces in LM_KERNELS] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces,
+         "launches": state["main_launches"][name],
+         **{k: state["train_kernels"][name][key] for k, key in (
+             ("max_abs_err", "max_abs_err"), ("ms", "kernel_ms"),
+             ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+             ("bound_by", "bound_by"), ("library_ms", "library_ms"))},
+         **{k: state["train_kernels"][name][k] for k in TRAIN_EXTRA_KEYS
+            if k in state["train_kernels"][name]}}
+        for name, replaces in TRAIN_KERNELS]}
 
 
 def main() -> int:
@@ -3220,12 +3689,16 @@ def main() -> int:
     check_spmd(state)
     build.reset_launches()
     phase_lm(state)
-    state["main_launches"] = {k: launches.get(k, 0) + v
-                              for k, v in build.LAUNCHES.items()}
+    lm_launches = dict(build.LAUNCHES)
+    check_lm(state)
+    build.reset_launches()
+    phase_train(state)
+    state["main_launches"] = {k: launches.get(k, 0) + lm_launches.get(k, 0)
+                              + v for k, v in build.LAUNCHES.items()}
     for k, v in state["main_launches"].items():
         if v == 0:
             raise AssertionError(f"{k} was never launched on the main path")
-    check_lm(state)
+    check_train(state)
     print(state["smi"], flush=True)
     print(json.dumps(summary(state)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,14 +17,18 @@ PyTorch version (sources under ``csrc/``; built and launched through
   * ``seg_bitmap`` -- (segment, predicate bucket) counts for per-subject
     predicate bitmaps (replaces ``seg_bitmap``);
   * ``flash_attention`` -- online-softmax attention with grouped KV heads,
-    the LM prefill's attention (replaces ``flash_attention``);
+    the LM prefill's and training's attention (replaces
+    ``flash_attention``), and ``flash_attention_bwd``, its backward
+    (``FlashAttentionFn``; the reference differentiates plain attention);
   * ``ssm_scan`` -- the Mamba-1 selective scan with its final state, the
-    Mamba prefill's scan (replaces ``ssm_scan``).
+    Mamba prefill's and training's scan (replaces ``ssm_scan``), and
+    ``ssm_scan_bwd``, its backward from the forward's chunk states
+    (``SSMScanFn``).
 
 ``ops.py`` holds the host entry points (``intersect_count``,
 ``predicate_bitmaps``, ``match_counts``, ``signature_overlap``,
 ``flash_attention_gqa``, ``selective_scan``).  Importing this package
-registers every kernel, so ``build.build_kernels()`` builds all eight.
+registers every kernel, so ``build.build_kernels()`` builds all ten.
 """
 from repro_torch.kernels import (dp_layer, flash_attention,  # noqa: F401
                                  join_count, seg_bitmap, sorted_intersect,

@@ -181,3 +181,11 @@ def route(device) -> str:
     if device.type == "cuda":
         return "kernel"
     raise ValueError(f"no kernel for device {device}")
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd is on and one of ``tensors`` requires a gradient:
+    a wrapper then goes through its kernel's autograd Function."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

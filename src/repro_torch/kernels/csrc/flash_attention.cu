@@ -11,6 +11,9 @@
 // q: (B, S, H, hd); k, v: (B, S, KV, hd); o: (B, S, H, hd) in q's type
 // (float32 or bfloat16).  Query head h reads KV head h / (H / KV), so the
 // reference wrapper's jnp.repeat of the KV heads is never materialised.
+// Given a non-null lse (B, H, S) float32, it also writes each row's
+// log-sum-exp of the scaled, masked scores (natural log), which the
+// backward kernel (flash_attention_bwd.cu) needs; serving passes null.
 //
 // Work split: one block of 4 warps per (batch * head, query tile), the
 // heaviest causal tiles launched first.  A warp owns MT m16 tiles of query
@@ -69,6 +72,7 @@
 namespace {
 
 constexpr float kMaskValue = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;          // warps per block
 constexpr int kThreads = 32 * kWarps;
 
@@ -258,8 +262,9 @@ struct F32Tile {
 template <int HD, int BK, int MT>
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int S, int H,
-          int KV, int causal, int window, float scale_log2) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int S, int H, int KV, int causal,
+          int window, float scale_log2) {
   using L = F32Tile<HD, BK, MT>;
   constexpr int BQ = L::BQ, QS = L::QS, VS = L::VS;
   constexpr int NT = BK / 8;          // score n8 tiles
@@ -385,8 +390,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = r0 + 16 * mt + 8 * i;
-      const float inv = 1.f / fmaxf(quad_sum(l[mt][i]), 1e-20f);
+      const float den = fmaxf(quad_sum(l[mt][i]), 1e-20f);
+      const float inv = 1.f / den;
       if (qp >= S) continue;
+      if (lse != nullptr && t == 0)
+        lse[(size_t)bh * S + qp] = (m[mt][i] + log2f(den)) * kLn2;
 #pragma unroll
       for (int n = 0; n < DT; ++n)
         *reinterpret_cast<float2*>(ob + qp * q_row + 8 * n + 2 * t) =
@@ -410,7 +418,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           int S, int H, int KV, int causal, int window, float scale_log2) {
+           float* __restrict__ lse, int S, int H, int KV, int causal,
+           int window, float scale_log2) {
   using L = Bf16Tile<HD, MT>;
   using bf16 = __nv_bfloat16;
   constexpr int BQ = L::BQ, RS = L::RS, BK = L::BK;
@@ -538,8 +547,11 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = r0 + 16 * mt + 8 * i;
-      const float inv = 1.f / fmaxf(quad_sum(l[mt][i]), 1e-20f);
+      const float den = fmaxf(quad_sum(l[mt][i]), 1e-20f);
+      const float inv = 1.f / den;
       if (qp >= S) continue;
+      if (lse != nullptr && t == 0)
+        lse[(size_t)bh * S + qp] = (m[mt][i] + log2f(den)) * kLn2;
 #pragma unroll
       for (int n = 0; n < DT; ++n)
         *reinterpret_cast<uint32_t*>(ob + qp * q_row + 8 * n + 2 * t) =
@@ -551,73 +563,75 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <typename T, int BQ, typename Kern>
 int launch(Kern kern, size_t smem, const void* q, const void* k,
-           const void* v, void* o, int B, int S, int H, int KV, int causal,
-           int window, float scale_log2, cudaStream_t stream) {
+           const void* v, void* o, float* lse, int B, int S, int H, int KV,
+           int causal, int window, float scale_log2, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k,
-                                         (const T*)v, (T*)o, S, H, KV, causal,
-                                         window, scale_log2);
+                                         (const T*)v, (T*)o, lse, S, H, KV,
+                                         causal, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int HD, int BK, int MT>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int causal, int window, float sl2,
-               cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, int causal,
+               int window, float sl2, cudaStream_t st) {
   using L = F32Tile<HD, BK, MT>;
-  return launch<float, L::BQ>(flash_f32<HD, BK, MT>, L::smem, q, k, v, o, B,
-                              S, H, KV, causal, window, sl2, st);
+  return launch<float, L::BQ>(flash_f32<HD, BK, MT>, L::smem, q, k, v, o,
+                              lse, B, S, H, KV, causal, window, sl2, st);
 }
 
 template <int HD, int MT>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, int causal, int window, float sl2,
-                cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, int causal,
+                int window, float sl2, cudaStream_t st) {
   using L = Bf16Tile<HD, MT>;
   return launch<__nv_bfloat16, L::BQ>(flash_bf16<HD, MT>, L::smem, q, k, v,
-                                      o, B, S, H, KV, causal, window, sl2,
-                                      st);
+                                      o, lse, B, S, H, KV, causal, window,
+                                      sl2, st);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t.
+// dtype: 0 float32, 1 bfloat16; lse_out may be null.  Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int S, int H, int KV, int hd,
+                               void* o, void* lse_out, int B, int S, int H,
+                               int KV, int hd,
                                int dtype, int causal, int window, double scale,
                                void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float sl2 = (float)(scale * 1.4426950408889634);   // scale * log2 e
+  float* lse = (float*)lse_out;
   // (hd, key tile, m16 tiles a warp) of each instance; at hd 256 the
   // registers allow one m16 tile a warp
   if (dtype == 0) {
     switch (hd) {
       case 64:
-        return launch_f32<64, 64, 2>(q, k, v, o, B, S, H, KV, causal, window,
-                                     sl2, st);
+        return launch_f32<64, 64, 2>(q, k, v, o, lse, B, S, H, KV, causal,
+                                     window, sl2, st);
       case 128:
-        return launch_f32<128, 32, 2>(q, k, v, o, B, S, H, KV, causal,
+        return launch_f32<128, 32, 2>(q, k, v, o, lse, B, S, H, KV, causal,
                                       window, sl2, st);
       case 256:
-        return launch_f32<256, 32, 1>(q, k, v, o, B, S, H, KV, causal,
+        return launch_f32<256, 32, 1>(q, k, v, o, lse, B, S, H, KV, causal,
                                       window, sl2, st);
     }
   } else if (dtype == 1) {
     switch (hd) {
       case 64:
-        return launch_bf16<64, 2>(q, k, v, o, B, S, H, KV, causal, window,
-                                  sl2, st);
+        return launch_bf16<64, 2>(q, k, v, o, lse, B, S, H, KV, causal,
+                                  window, sl2, st);
       case 128:
-        return launch_bf16<128, 1>(q, k, v, o, B, S, H, KV, causal, window,
-                                   sl2, st);
+        return launch_bf16<128, 1>(q, k, v, o, lse, B, S, H, KV, causal,
+                                   window, sl2, st);
       case 256:
-        return launch_bf16<256, 1>(q, k, v, o, B, S, H, KV, causal, window,
-                                   sl2, st);
+        return launch_bf16<256, 1>(q, k, v, o, lse, B, S, H, KV, causal,
+                                   window, sl2, st);
     }
   }
   return (int)cudaErrorInvalidValue;

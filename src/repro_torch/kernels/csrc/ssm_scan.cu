@@ -7,7 +7,9 @@
 // (B, S, D); bt, ct: (B, S, N); a: (D, N); y: (B, S, D); all float32.  It
 // also writes the final state h_S as h_last (B, D, N): the serving prefill
 // seeds the decode cache with it, where the TPU kernel leaves its carry in
-// VMEM scratch.
+// VMEM scratch.  Given a non-null h_chunks (B, ceil(S / 32), D, N), it also
+// writes the state after every 32-step chunk, from which the backward kernel
+// (ssm_scan_bwd.cu) recomputes a chunk's states; serving passes null.
 //
 // What bounds it: moving dt, x and y (12 bytes per (b, t, d)) at 3.35
 // TB/s, and nearly as much the exponentials, one per (b, t, d, n): the
@@ -55,6 +57,7 @@ struct Scan {
   const float* a;
   float* y;
   float* h_last;
+  float* h_chunks;  // (B, n_chunks, D, N) states after each chunk, or null
   int B, S, D, N;
   int vec;          // dt, x and y rows move as 16-byte copies
   int bc_vec;       // so do bt and ct rows
@@ -262,6 +265,12 @@ scan_kernel(const Scan p) {
     float* yo = ys + (i & 1) * kWarps * T::kPart + g * T::kPart + c;
 #pragma unroll
     for (int r = 0; r < kChunk; ++r) yo[r * kCh] = yv[r];
+    if (p.h_chunks != nullptr && live) {
+      float* hc = p.h_chunks + (((size_t)b * nch + i) * p.D + d) * p.N;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j)
+        if (n0 + j < p.N) hc[n0 + j] = h[j];
+    }
   }
   if (nch > 0) {
     __syncthreads();
@@ -291,10 +300,11 @@ cudaError_t run(const Scan& p, cudaStream_t st) {
 
 }  // namespace
 
-// Returns a cudaError_t.
+// h_chunks may be null.  Returns a cudaError_t.
 extern "C" int ssm_scan(const void* dt, const void* bt, const void* ct,
                         const void* x, const void* a, void* y, void* h_last,
-                        int B, int S, int D, int N, void* stream) {
+                        void* h_chunks, int B, int S, int D, int N,
+                        void* stream) {
   if (B == 0 || D == 0 || N == 0) return 0;
   if (N > 32 || B > 65535) return (int)cudaErrorInvalidValue;
   Scan p;
@@ -305,6 +315,7 @@ extern "C" int ssm_scan(const void* dt, const void* bt, const void* ct,
   p.a = (const float*)a;
   p.y = (float*)y;
   p.h_last = (float*)h_last;
+  p.h_chunks = (float*)h_chunks;
   p.B = B; p.S = S; p.D = D; p.N = N;
   p.vec = D % 4 == 0 &&
           ((uintptr_t)dt | (uintptr_t)x | (uintptr_t)y) % 16 == 0;

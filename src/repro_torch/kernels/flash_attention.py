@@ -20,23 +20,36 @@ bfloat16) with the online softmax on the accumulators in registers.  It
 takes any ``S`` (the reference asserts ``S % 128 == 0``) and ``hd`` in
 ``HEAD_DIMS``.  It is bound by operations.
 
-A wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+Training differentiates the kernel through ``FlashAttentionFn``: its
+forward launches the kernel with the row log-sum-exp ``lse`` ``(B, H, S)``
+(``flash_attention_fwd``), its backward the hand-written
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: ``dq``, ``dk``,
+``dv`` from ``q, k, v, out, dout, lse``, deterministic).  ``flash_attention``
+goes through it whenever gradients are on and an input requires one.  The
+reference has no backward kernel; its training differentiates plain
+attention with ``jax.grad``.
+
+A wrapper runs its plain version only for tensors on the CPU (the backward's
+is autograd through ``flash_attention_plain``); for CUDA tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.build import D, P, I, check, launch, register, route
+import torch
+
+from repro_torch.kernels.build import (D, P, I, check, launch, register,
+                                      route, wants_grad)
 
 register("flash_attention", "flash_attention.cu", "flash_attention",
-         [P] * 4 + [I] * 8 + [D])
+         [P] * 5 + [I] * 8 + [D])
+register("flash_attention_bwd", "flash_attention_bwd.cu",
+         "flash_attention_bwd", [P] * 10 + [I] * 8 + [D])
 
 HEAD_DIMS = (64, 128, 256)     # head widths the kernel is instantiated for
 MASK_VALUE = -1e30
 
 
 def _check_args(q, k, v):
-    import torch
-
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} must be (B, S, heads, hd)")
@@ -55,37 +68,106 @@ def _check_args(q, k, v):
     return dev, (B, S, H, KV, hd)
 
 
+def _dtype_code(t) -> int:
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def _launch_fwd(q, k, v, causal, window, scale, with_lse: bool):
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {hd} not in "
+                         f"{HEAD_DIMS}")
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel():
+        launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, S, H,
+               KV, hd, _dtype_code(q), int(bool(causal)), int(window), scale)
+    return out, lse
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: "float | None" = None):
     """Attention output ``(B, S, H, hd)`` in ``q``'s type (see the module
-    docstring)."""
-    import torch
-
+    docstring); differentiable on both devices."""
     dev, (B, S, H, KV, hd) = _check_args(q, k, v)
     scale = hd ** -0.5 if scale is None else float(scale)
     if route(dev) == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                      scale)
+    return _launch_fwd(q, k, v, causal, window, scale, False)[0]
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: "float | None" = None):
+    """``(out, lse)``: the attention output and each row's log-sum-exp of
+    the scaled, masked scores, ``(B, H, S)`` float32 (natural log)."""
+    dev, (B, S, H, KV, hd) = _check_args(q, k, v)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if route(dev) == "plain":
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         window=window, scale=scale)
+    return _launch_fwd(q, k, v, causal, window, scale, True)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: int = 0, scale: "float | None" = None):
+    """``(dq, dk, dv)`` of ``flash_attention`` for the output gradient
+    ``dout``, in the inputs' type; ``out`` and ``lse`` are
+    ``flash_attention_fwd``'s.  On the CPU the plain version ignores
+    ``out`` and ``lse``."""
+    dev, (B, S, H, KV, hd) = _check_args(q, k, v)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    check("dout", dout, q.dtype, (B, S, H, hd), dev)
+    if route(dev) == "plain":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         window=window, scale=scale)
+    check("out", out, q.dtype, (B, S, H, hd), dev)
+    check("lse", lse, torch.float32, (B, H, S), dev)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {hd} not in "
                          f"{HEAD_DIMS}")
-    out = torch.empty_like(q)
-    if out.numel():
-        launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), B, S, H, KV, hd,
-               0 if q.dtype == torch.float32 else 1, int(bool(causal)),
-               int(window), scale)
-    return out
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    if dq.numel():
+        launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               dl.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+               S, H, KV, hd, _dtype_code(q), int(bool(causal)), int(window),
+               scale)
+    return dq, dk, dv
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: "float | None" = None):
-    """Plain PyTorch version of ``flash_attention`` (same arguments): the
-    whole masked softmax in float32."""
-    import torch
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with the backward kernel: the forward keeps
+    ``lse`` for it (``flash_attention_fwd`` / ``flash_attention_bwd``)."""
 
-    _, (B, S, H, KV, hd) = _check_args(q, k, v)
-    scale = hd ** -0.5 if scale is None else float(scale)
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def _masked_scores(q, k, causal: bool, window: int, scale: float):
+    """float32 scores ``(B, KV, G, S, S)`` with masked entries set to
+    ``MASK_VALUE``."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     qg = q.float().reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     i = torch.arange(S, device=q.device)[:, None]
@@ -97,6 +179,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         masked |= i - j >= window
     # setting -1e30 equals the reference's adding it: it absorbs any finite
     # float32 score below 2**75
-    w = torch.softmax(s.masked_fill(masked, MASK_VALUE), dim=-1)
+    return s.masked_fill(masked, MASK_VALUE)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: "float | None" = None):
+    """Plain PyTorch version of ``flash_attention`` (same arguments): the
+    whole masked softmax in float32."""
+    _, (B, S, H, KV, hd) = _check_args(q, k, v)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    w = torch.softmax(_masked_scores(q, k, causal, window, scale), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True,
+                              window: int = 0, scale: "float | None" = None):
+    """Plain PyTorch version of ``flash_attention_fwd``: ``(out, lse)``."""
+    _, (B, S, H, KV, hd) = _check_args(q, k, v)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window, scale),
+                          dim=-1).reshape(B, H, S)
+    out = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                scale=scale)
+    return out, lse
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
+                              window: int = 0, scale: "float | None" = None):
+    """Plain PyTorch version of ``flash_attention_bwd``: autograd through
+    ``flash_attention_plain``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, window=window,
+                                    scale=scale)
+        return torch.autograd.grad(out, leaves, dout)

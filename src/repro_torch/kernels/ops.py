@@ -15,8 +15,12 @@ padding (``_pad_to``, ``_pad2`` and the ``-1``/``-2`` sentinels), since the
 kernels take any extent, and ``set_interpret``.
 
 The LM kernels take and return tensors on their own device:
-``flash_attention_gqa`` (prefill attention) and ``selective_scan`` (the
-Mamba prefill), the reference's ``kernels/ops.py:84-104``.
+``flash_attention_gqa`` (prefill and training attention) and
+``selective_scan`` (the Mamba prefill and training), the reference's
+``kernels/ops.py:84-104``.  Both are differentiable: on the card through
+the kernels' autograd Functions (``FlashAttentionFn``, ``SSMScanFn``),
+whose backward passes are kernels too, on the CPU through the plain
+versions.
 """
 from __future__ import annotations
 

@@ -20,21 +20,37 @@ asserts ``S % 64 == 0`` and ``D % 256 == 0``); ``N <= MAX_STATE``.  It is
 bound by its bytes, and nearly as much by its exponentials, one per (b, t,
 d, n) on the special-function units.
 
-A wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+Training differentiates the kernel through ``SSMScanFn``: its forward
+launches the kernel keeping the state after every ``CHUNK``-step chunk
+(``ssm_scan_fwd``), its backward the hand-written ``csrc/ssm_scan_bwd.cu``
+(``ssm_scan_bwd``), which walks the chunks in reverse, recomputing each
+chunk's states from the kept one, and gives ``d dt``, ``d bt``, ``d ct``,
+``d x`` and ``d a`` from ``dy`` and ``d h_last`` (deterministic).
+``ssm_scan`` goes through it whenever gradients are on and an input
+requires one.  The reference has no backward kernel; its training
+differentiates the associative scan with ``jax.grad``.
+
+A wrapper runs its plain version only for tensors on the CPU (the backward's
+is autograd through ``ssm_scan_plain``); for CUDA tensors it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.build import P, I, check, launch, register, route
+import torch
 
-register("ssm_scan", "ssm_scan.cu", "ssm_scan", [P] * 7 + [I] * 4)
+from repro_torch.kernels.build import (P, I, check, launch, register, route,
+                                      wants_grad)
+
+register("ssm_scan", "ssm_scan.cu", "ssm_scan", [P] * 8 + [I] * 4)
+register("ssm_scan_bwd", "ssm_scan_bwd.cu", "ssm_scan_bwd",
+         [P] * 16 + [I] * 4)
 
 MAX_STATE = 32                 # state width the kernel takes
+CHUNK = 32                     # steps between the states the forward keeps
+CHANNELS = 32                  # channels of a kernel block
 
 
 def _check_args(dt, bt, ct, x, a):
-    import torch
-
     if x.dim() != 3 or bt.dim() != 3:
         raise ValueError(f"ssm_scan: x {tuple(x.shape)} and bt "
                          f"{tuple(bt.shape)} must be (B, S, width)")
@@ -50,37 +66,134 @@ def _check_args(dt, bt, ct, x, a):
     return dev, (B, S, D, N)
 
 
-def ssm_scan(dt, bt, ct, x, a):
-    """``(y (B, S, D), h_last (B, D, N))`` float32 (see the module
-    docstring)."""
-    import torch
+def _n_chunks(S: int) -> int:
+    return -(-S // CHUNK)
 
-    dev, (B, S, D, N) = _check_args(dt, bt, ct, x, a)
-    if route(dev) == "plain":
-        return ssm_scan_plain(dt, bt, ct, x, a)
+
+def _launch_fwd(dt, bt, ct, x, a, keep_chunks: bool):
+    B, S, D = x.shape
+    N = bt.shape[2]
     if N > MAX_STATE:
         raise ValueError(f"ssm_scan: state width {N} above {MAX_STATE}")
+    dev = x.device
     # at N = 0 the kernel does not run and y is the empty sum, zeros
     y = (torch.empty if N else torch.zeros)((B, S, D), dtype=torch.float32,
                                              device=dev)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    hc = (torch.empty((B, _n_chunks(S), D, N), dtype=torch.float32,
+                      device=dev) if keep_chunks else None)
     if h_last.numel():
         launch("ssm_scan", dt.data_ptr(), bt.data_ptr(), ct.data_ptr(),
                x.data_ptr(), a.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-               B, S, D, N)
-    return y, h_last
+               0 if hc is None else hc.data_ptr(), B, S, D, N)
+    return y, h_last, hc
+
+
+def ssm_scan(dt, bt, ct, x, a):
+    """``(y (B, S, D), h_last (B, D, N))`` float32 (see the module
+    docstring); differentiable on both devices."""
+    dev, _ = _check_args(dt, bt, ct, x, a)
+    if route(dev) == "plain":
+        return ssm_scan_plain(dt, bt, ct, x, a)
+    if wants_grad(dt, bt, ct, x, a):
+        return SSMScanFn.apply(dt, bt, ct, x, a)
+    return _launch_fwd(dt, bt, ct, x, a, False)[:2]
+
+
+def ssm_scan_fwd(dt, bt, ct, x, a):
+    """``(y, h_last, h_chunks)``: ``ssm_scan``'s outputs and the state after
+    every ``CHUNK``-step chunk, ``(B, ceil(S / CHUNK), D, N)``."""
+    dev, _ = _check_args(dt, bt, ct, x, a)
+    if route(dev) == "plain":
+        return ssm_scan_chunks_plain(dt, bt, ct, x, a)
+    return _launch_fwd(dt, bt, ct, x, a, True)
+
+
+def ssm_scan_bwd(dt, bt, ct, x, a, h_chunks, dy, dh_last=None):
+    """``(d dt, d bt, d ct, d x, d a)`` of ``ssm_scan`` for the gradients
+    ``dy`` of ``y`` and ``dh_last`` of the final state (``None``: zero);
+    ``h_chunks`` is ``ssm_scan_fwd``'s.  On the CPU the plain version
+    ignores ``h_chunks``."""
+    dev, (B, S, D, N) = _check_args(dt, bt, ct, x, a)
+    check("h_chunks", h_chunks, torch.float32, (B, _n_chunks(S), D, N), dev)
+    check("dy", dy, torch.float32, (B, S, D), dev)
+    if dh_last is not None:
+        check("dh_last", dh_last, torch.float32, (B, D, N), dev)
+    if route(dev) == "plain":
+        return ssm_scan_bwd_plain(dt, bt, ct, x, a, dy, dh_last)
+    if N > MAX_STATE:
+        raise ValueError(f"ssm_scan: state width {N} above {MAX_STATE}")
+    grads = [torch.empty_like(t) for t in (dt, bt, ct, x, a)]
+    if not (S and N):       # nothing flows: y is zero, h_last constant
+        return tuple(g.zero_() for g in grads)
+    ddt, dbt, dct, dx, da = grads
+    nbd = -(-D // CHANNELS)
+    db_part = torch.empty((nbd, B, S, N), dtype=torch.float32, device=dev)
+    dc_part = torch.empty_like(db_part)
+    da_part = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    launch("ssm_scan_bwd", dt.data_ptr(), bt.data_ptr(), ct.data_ptr(),
+           x.data_ptr(), a.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(),
+           0 if dh_last is None else dh_last.data_ptr(), ddt.data_ptr(),
+           dbt.data_ptr(), dct.data_ptr(), dx.data_ptr(), da.data_ptr(),
+           db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(), B, S,
+           D, N)
+    return ddt, dbt, dct, dx, da
+
+
+class SSMScanFn(torch.autograd.Function):
+    """``ssm_scan`` with the backward kernel: the forward keeps the chunk
+    states for it (``ssm_scan_fwd`` / ``ssm_scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, dt, bt, ct, x, a):
+        y, h_last, hc = ssm_scan_fwd(dt, bt, ct, x, a)
+        ctx.save_for_backward(dt, bt, ct, x, a, hc)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, bt, ct, x, a, hc = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        return ssm_scan_bwd(dt, bt, ct, x, a, hc, dy, dh_last)
 
 
 def ssm_scan_plain(dt, bt, ct, x, a):
     """Plain PyTorch version of ``ssm_scan`` (same arguments): the
     recurrence, one step at a time."""
-    import torch
+    return ssm_scan_chunks_plain(dt, bt, ct, x, a)[:2]
 
+
+def ssm_scan_chunks_plain(dt, bt, ct, x, a):
+    """Plain PyTorch version of ``ssm_scan_fwd``: ``(y, h_last,
+    h_chunks)``."""
     _, (B, S, D, N) = _check_args(dt, bt, ct, x, a)
     h = torch.zeros((B, D, N), dtype=torch.float32, device=x.device)
-    y = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    ys, hc = [], []
     dtx = dt * x
     for t in range(S):
         h = h * torch.exp(dt[:, t, :, None] * a) + dtx[:, t, :, None] * bt[:, t, None, :]
-        y[:, t] = (h * ct[:, t, None, :]).sum(-1)
-    return y, h
+        ys.append((h * ct[:, t, None, :]).sum(-1))
+        if t % CHUNK == CHUNK - 1 or t == S - 1:
+            hc.append(h)
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, S, D), dtype=torch.float32, device=x.device))
+    hc = (torch.stack(hc, 1) if hc else
+          torch.zeros((B, 0, D, N), dtype=torch.float32, device=x.device))
+    return y, h, hc
+
+
+def ssm_scan_bwd_plain(dt, bt, ct, x, a, dy, dh_last=None):
+    """Plain PyTorch version of ``ssm_scan_bwd``: autograd through
+    ``ssm_scan_plain``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (dt, bt, ct, x, a)]
+        y, h_last = ssm_scan_plain(*leaves)
+        outs, grads = [y], [dy]
+        if dh_last is not None:
+            outs.append(h_last)
+            grads.append(dh_last)
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+        return tuple(torch.zeros_like(t) if g is None else g
+                     for g, t in zip(got, leaves))

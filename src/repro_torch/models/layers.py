@@ -4,8 +4,8 @@ reference's ``models/layers.py``; every function takes the activation dtype
 from its inputs.
 
 Full-sequence attention (``attention``, ``attention_prefill``) goes through
-``kernels.ops.flash_attention_gqa``: the flash kernel on the card, its plain
-masked softmax on the CPU.  The reference computes the same function as a
+``kernels.ops.flash_attention_gqa``: the flash kernel on the card (and in
+training its backward kernel), its plain masked softmax on the CPU.  The reference computes the same function as a
 naive masked softmax with a ``-1e9`` mask; the kernel's ``-1e30`` gives the
 same result on every row with a visible key, which causal attention always
 has.  Decode attention over the cache stays plain, as in the reference.

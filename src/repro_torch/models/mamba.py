@@ -1,7 +1,8 @@
 """Mamba-1 block (selective SSM): in-proj -> causal conv -> selective scan ->
 gated out-proj.  The full-sequence passes (``mamba_block``,
 ``mamba_prefill``) run the scan through ``kernels.ops.selective_scan`` (the
-``ssm_scan`` kernel on the card, its plain recurrence on the CPU), where the
+``ssm_scan`` kernel on the card, differentiated in training by its backward
+kernel ``ssm_scan_bwd``; its plain recurrence on the CPU), where the
 reference runs an associative scan (``_scan_chunk``); decode is the O(1)
 single-step recurrence on (conv window, SSM state), plain as in the
 reference.  ``PerfFlags.mamba_chunk`` has no effect: the kernel walks the

@@ -1,21 +1,29 @@
 """Decoder LM over the arch zoo: the dense (GQA attention + SwiGLU) and SSM
-(Mamba-1) families, for serving.
+(Mamba-1) families, for training and serving.
 
 The reference's ``models/model.py`` stacks each repeating group's params and
 runs them with ``jax.lax.scan``; here the params are one dict per layer
 (``params["layers"][i]``, the reference's group slots unstacked in layer
 order, see ``convert.params_from_jax``) and a Python loop walks them.
-Decode caches are one dict per layer as well, updated in place.
+Decode caches are one dict per layer as well, updated in place.  Training
+(``forward_hidden`` / ``forward`` with ``remat``) recomputes each layer in
+the backward pass (``torch.utils.checkpoint``), where the reference wraps
+each scanned group in ``jax.checkpoint``; the flash attention and selective
+scan kernels are differentiated by their own backward kernels.
 
-Entry points: ``init_params`` / ``forward`` / ``decode_step`` /
-``init_decode_caches`` / ``prefill_with_caches``.  The MoE, MLA, enc-dec and
-VLM-prefix configurations raise ``NotImplementedError``; so does the int8 KV
-cache.  The reference's activation-sharding hook (``set_activation_policy``)
-comes with the SPMD work.
+Entry points: ``init_params`` / ``forward_hidden`` / ``forward`` /
+``decode_step`` / ``init_decode_caches`` / ``prefill_with_caches``.  Not
+ported yet: the MoE FFN (``models/moe.py``), MLA attention
+(``models/mla.py``), the encoder-decoder path and the VLM patch-embedding
+prefix (all four raise ``NotImplementedError``), the int8 KV cache
+(raises), the reference's activation-sharding hook
+(``set_activation_policy``) and the dry-run's ``input_specs``.
 """
 from __future__ import annotations
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ArchConfig
 from repro_torch.models import layers as L
@@ -116,16 +124,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def forward_hidden(cfg: ArchConfig, params: dict, batch: dict
+def forward_hidden(cfg: ArchConfig, params: dict, batch: dict,
+                   remat: bool = True
                    ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Final-norm hidden states (pre-head): (B, S, D), and the MoE aux loss
-    (zero: no MoE layer is ported)."""
+    (zero: no MoE layer is ported).  With ``remat`` and gradients on, each
+    layer's activations are recomputed in the backward pass instead of
+    kept."""
     _refuse_unported(cfg)
     x = params["embed"][batch["tokens"]]
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    remat = remat and torch.is_grad_enabled()
     for li, lp in enumerate(params["layers"]):
-        x = _apply_layer(cfg, lp, li, x, positions)
+        if remat:
+            x = checkpoint(_apply_layer, cfg, lp, li, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_layer(cfg, lp, li, x, positions)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -134,10 +150,10 @@ def lm_head(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict
+def forward(cfg: ArchConfig, params: dict, batch: dict, remat: bool = True
             ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Returns (logits, moe_aux_loss)."""
-    x, aux = forward_hidden(cfg, params, batch)
+    x, aux = forward_hidden(cfg, params, batch, remat)
     return x @ lm_head(cfg, params), aux
 
 

@@ -920,3 +920,172 @@ def test_spmd_engine_on_card_equals_cpu(dev, which, mesh, aware):
     assert got.keys() == want.keys()
     for k in got:
         assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+
+
+# --------------------------------------------------------------------------
+# LM training: the backward kernels of flash attention and the scan
+# --------------------------------------------------------------------------
+
+def _bwd_close(got, want, tol):
+    """``|got - want| <= tol * max(1, max|want|)`` everywhere, and finite."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert err <= tol * scale, (err, tol * scale)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 129, 2, 2, 64),     # GQA 1
+                                         (2, 200, 4, 2, 128),    # GQA 2
+                                         (1, 77, 14, 2, 64),     # GQA 7
+                                         (1, 63, 2, 1, 256),
+                                         (1, 300, 7, 1, 64),
+                                         (4, 512, 14, 2, 64)])   # qwen2's step
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0),
+                                           (False, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_equals_plain(dev, B, S, H, KV, hd, causal,
+                                                 window, dtype):
+    """``flash_attention_bwd`` against autograd through the plain version,
+    and two launches bit-identical; the forward's ``lse`` against the plain
+    log-sum-exp."""
+    from repro_torch.kernels import flash_attention as FA
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + hd + H)
+    q, k, v = (t.to(dev) for t in _qkv(rng, B, S, H, KV, hd, dt))
+    dout = torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(
+        np.float32)).to(dev, dt)
+    kw = dict(causal=causal, window=window)
+    out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = FA.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = FA.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = FA.flash_attention_bwd_plain(q, k, v, dout, **kw)
+    _, lse0 = FA.flash_attention_lse_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    _bwd_close(lse, lse0, tol)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dt and g.shape == t.shape
+        assert torch.equal(g, a)
+        _bwd_close(g, w, tol)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(1, 1, 40, 16), (1, 33, 7, 16),
+                                     (2, 100, 301, 16), (1, 65, 33, 32),
+                                     (3, 37, 5, 17), (2, 5, 7, 0),
+                                     (1, 512, 8192, 16)])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssm_scan_bwd_kernel_equals_plain(dev, B, S, D, N, with_dh):
+    """``ssm_scan_bwd`` (from the forward's chunk states, ``d h_last`` zero
+    or given) against autograd through the plain version, and two launches
+    bit-identical."""
+    from repro_torch.kernels import ssm_scan as SS
+
+    rng = np.random.default_rng(S + D + N)
+    args = [t.to(dev) for t in _scan_inputs(rng, B, S, D, N)]
+    dy = torch.from_numpy(rng.normal(size=(B, S, D)).astype(np.float32)).to(dev)
+    dh = (torch.from_numpy(rng.normal(size=(B, D, N)).astype(np.float32))
+          .to(dev) if with_dh else None)
+    y, h_last, hc = SS.ssm_scan_fwd(*args)
+    y0, h0 = SS.ssm_scan_plain(*args)
+    _bwd_close(y, y0, 2e-4)
+    if S:
+        _bwd_close(hc[:, -1], h_last, 0.0)
+    before = build.LAUNCHES["ssm_scan_bwd"]
+    got = SS.ssm_scan_bwd(*args, hc, dy, dh)
+    again = SS.ssm_scan_bwd(*args, hc, dy, dh)
+    assert build.LAUNCHES["ssm_scan_bwd"] == before + (2 if N and S else 0)
+    want = SS.ssm_scan_bwd_plain(*args, dy, dh)
+    torch.cuda.synchronize()
+    for g, a, w, t in zip(got, again, want, args):
+        assert g.shape == t.shape
+        assert torch.equal(g, a)
+        _bwd_close(g, w, 2e-4)
+
+
+def test_lm_kernel_outputs_carry_grad_fn_on_card(dev):
+    """F3 (ROADMAP queue 3): on the card an output of either wrapper has a
+    ``grad_fn`` (the kernels' autograd Functions) when an input requires a
+    gradient, and the gradient reaches every input."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    q, k, v = (t.to(dev).requires_grad_()
+               for t in _qkv(np.random.default_rng(0), 1, 64, 4, 2, 64,
+                             torch.float32))
+    out = ops.flash_attention_gqa(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.square().sum().backward()
+    assert all(t.grad is not None and float(t.grad.abs().sum()) > 0
+               for t in (q, k, v))
+    args = [t.to(dev).requires_grad_() for t in _scan_inputs(
+        np.random.default_rng(1), 1, 40, 64, 16)]
+    y, h = ops.selective_scan(*args)
+    assert type(y.grad_fn).__name__ == "SSMScanFnBackward"
+    y.square().sum().backward()
+    assert all(t.grad is not None and float(t.grad.abs().sum()) > 0
+               for t in args)
+    with torch.no_grad():       # serving: no Function, no chunk states
+        assert FA.flash_attention(q, k, v).grad_fn is None
+        assert SS.ssm_scan(*args)[0].grad_fn is None
+
+
+def _train_cfg(arch):
+    from repro_torch.config.base import reduced_config
+    from repro_torch.configs import get_arch
+
+    return reduced_config(get_arch(arch), head_dim=64, n_layers=3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+def test_train_step_on_card_equals_cpu(dev, arch):
+    """Two train steps (AdamW, two microbatches, compression, remat) on the
+    card give the CPU port's params and metrics within 1e-4; every
+    parameter gets a gradient through the kernels (F3), and the launches
+    are what remat predicts: two forwards and one backward per layer and
+    microbatch.  AdamW's ``eps`` is 1 so that its update is smooth in the
+    gradient: with a tiny ``eps`` the first update is ``lr * sign(g)``, and
+    an int8 rounding that the two devices' float32 sums split (0 against
+    one quantization step) would move an element by ``lr``."""
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.models import model as MDL
+    from repro_torch.train.grad_compress import init_error_feedback
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = _train_cfg(arch)
+    cpu = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    card = tree_map(lambda t: t.clone().to(dev), cpu)
+    loader = TokenLoader(vocab=cfg.vocab, batch=4, seq=96, seed=2)
+    kname = "ssm_scan" if arch.startswith("falcon") else "flash_attention"
+    _, _, _, grads = loss_and_grads(cfg, card, {
+        k: torch.from_numpy(v).long().to(dev)
+        for k, v in loader.batch_at(0).items()})
+    assert all(g is not None and float(g.abs().max()) > 0
+               for g in leaves(grads))
+    out = []
+    for params, where in ((card, dev), (cpu, "cpu")):
+        opt = adamw(lr=1e-3, eps=1.0)
+        step = make_train_step(cfg, opt, microbatches=2, compress=True)
+        state, efb = opt.init(params), init_error_feedback(params)
+        before = dict(build.LAUNCHES)
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).long().to(where)
+                     for k, v in loader.batch_at(s).items()}
+            params, state, metrics, efb = step(params, state, batch, efb)
+        if where == dev:
+            assert build.LAUNCHES[kname] - before[kname] == \
+                2 * 2 * 2 * cfg.n_layers
+            assert build.LAUNCHES[kname + "_bwd"] - before[kname + "_bwd"] \
+                == 2 * 2 * cfg.n_layers
+        out.append((leaves(params), {k: float(v) for k, v in metrics.items()}))
+    (pc, mc), (pp, mp) = out
+    for k in mp:
+        assert abs(mc[k] - mp[k]) <= 1e-4 * max(1.0, abs(mp[k])), k
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

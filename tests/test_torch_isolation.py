@@ -124,7 +124,8 @@ def test_stats_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert set(build.SOURCES) == {"dp_sweep", "dp_layer", "sorted_intersect",
                                   "join_count", "summary_probe", "seg_bitmap",
-                                  "flash_attention", "ssm_scan"}
+                                  "flash_attention", "ssm_scan",
+                                  "flash_attention_bwd", "ssm_scan_bwd"}
 
 
 def test_lm_entry_points_default_to_the_card():
@@ -185,3 +186,24 @@ def test_spmd_entry_points_default_to_the_card():
              for p in PORT_FILES}
     assert {"engine/operators.py", "engine/distributed.py", "launch/__init__.py",
             "launch/mesh.py", "launch/dist_selftest.py"} <= names
+
+
+def test_training_entry_points_default_to_the_card():
+    """The launcher trains on the card and checkpoints restore onto it
+    unless the caller asks for the CPU; the training modules and the two
+    backward kernels' sources are where the port keeps them."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.kernels.build import SOURCES
+    from repro_torch.launch import train as T
+
+    assert T.parse_args([]).device == "cuda"
+    assert inspect.signature(
+        CheckpointManager.restore).parameters["device"].default == "cuda"
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"train/optimizer.py", "train/grad_compress.py",
+            "train/train_step.py", "data/loader.py", "ckpt/checkpoint.py",
+            "launch/train.py", "common/tree.py"} <= names
+    for name in ("flash_attention_bwd", "ssm_scan_bwd"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / SOURCES[name]).is_file()
