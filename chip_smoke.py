@@ -148,8 +148,11 @@ Each phase prints one JSON line:
                 full depth, (b) at 2 layers of full width; every leaf
                 gets one), and each backward kernel against autograd through
                 its plain version at the main path's shapes, two launches
-                bit-identical, with device times, bounds and (flash) the
-                time of ``scaled_dot_product_attention``'s backward.
+                bit-identical, with device times, bounds, (flash) the
+                time of ``scaled_dot_product_attention``'s backward, and
+                one ``torch.profiler`` pass over a single call of each
+                (``launch_split``: every device kernel the call launches,
+                in launch order, with its device time).
 
 The main paths are ``fedbench``, ``query_serve``, ``large_star``,
 ``stats``, ``baselines``, ``failover`` and ``spmd`` running once, then
@@ -3152,7 +3155,7 @@ TRAIN_KERNELS = (
 # keys of a backward kernel's row carried into the summary line
 TRAIN_EXTRA_KEYS = ("shape", "deterministic", "bound_route",
                     "fp32_cuda_core_bound_ms", "bf16_ms", "bf16_library_ms",
-                    "bf16_bound_ms", "bf16_max_abs_err")
+                    "bf16_bound_ms", "bf16_max_abs_err", "launch_split")
 DEPTH_CUT_WHY = ("the float32 params, gradients, microbatch sum and error "
                  "feedback of all 64 layers (7.27 G params) take 116 GB; "
                  "AdamW's state alone another 58 GB")
@@ -3337,6 +3340,92 @@ def _grad_check(cell: str, arch: str, flags) -> "tuple[dict, dict]":
     return row, inputs
 
 
+def _kernel_name(name: str) -> str:
+    """A device kernel's demangled name without its return type, namespace,
+    template arguments and parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for stop in "<(":
+        name = name.split(stop, 1)[0]
+    return name
+
+
+def _launch_split(fn) -> dict:
+    """One call of ``fn`` (after a warm call) under ``torch.profiler``:
+    every device kernel it launches, in launch order, with its device time
+    in ms, and their sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e.time_range.start, _kernel_name(e.name),
+                   e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return {"launches": [[name, ms] for _, name, ms in rows],
+            "device_ms": sum(ms for _, _, ms in rows)}
+
+
+def _launch_splits(calls: dict) -> dict:
+    """``_launch_split`` of each backward-wrapper call in ``calls`` (key ->
+    (kernel, positional tensors, keyword options)), run in a fresh process
+    on the same inputs.  In a process that has run other profiler sessions
+    (the ``spmd`` phase's) or much other work, later sessions were seen to
+    drop device kernels; a fresh process's sessions keep them.  The child
+    opens a session on a PyTorch product first, then profiles each call
+    twice and fails unless both passes record the same kernels."""
+    import repro_torch
+    import torch
+
+    # the child imports the same package as this process
+    src = Path(repro_torch.__file__).resolve().parents[1]
+    path = ROOT / "build" / "launch_split.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: (kern, [a.cpu() if isinstance(a, torch.Tensor) else a
+                           for a in args], opts)
+                for k, (kern, args, opts) in calls.items()}, path)
+    try:
+        subprocess.run([sys.executable, "-c",
+                        f"import chip_smoke; chip_smoke._split_child("
+                        f"{str(path)!r}, {str(src)!r})"], cwd=ROOT,
+                       check=True)
+        return json.loads(path.with_suffix(".json").read_text())
+    finally:
+        path.unlink(missing_ok=True)
+        path.with_suffix(".json").unlink(missing_ok=True)
+
+
+def _split_child(path: str, src: str) -> None:
+    """The fresh process of ``_launch_splits``: ``src`` holds the
+    ``repro_torch`` to import."""
+    import torch
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    wrappers = {"flash_attention_bwd": FA.flash_attention_bwd,
+                "ssm_scan_bwd": SS.ssm_scan_bwd}
+    x = torch.ones((256, 256), device=DEVICE)
+    _launch_split(lambda: x @ x)
+    out = {}
+    for key, (kern, args, opts) in torch.load(path).items():
+        args = [a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        passes = [_launch_split(lambda: wrappers[kern](*args, **opts))
+                  for _ in range(2)]
+        names = [[n for n, _ in r["launches"]] for r in passes]
+        if not names[0] or names[0] != names[1]:
+            raise AssertionError(f"launch split of {key}: the profiler "
+                                 f"recorded {names}")
+        out[key] = passes[1]
+    Path(path).with_suffix(".json").write_text(json.dumps(out))
+
+
 def _check_bwd_flash(q, k, v) -> dict:
     """``flash_attention_bwd`` against autograd through the plain version
     at the main path's shape (float32 and bf16), two launches bit-identical,
@@ -3351,7 +3440,7 @@ def _check_bwd_flash(q, k, v) -> dict:
     KV = k.shape[2]
     g = torch.from_numpy(np.random.default_rng(TRAIN_SEED + 7).normal(
         size=q.shape).astype(np.float32)).to(q.device)
-    errs, times = {}, {}
+    errs, times, calls = {}, {}, {}
     for dtype, tol in BWD_TOL.items():
         dt = getattr(torch, dtype)
         a = [t.to(dt).contiguous() for t in (q, k, v)]
@@ -3378,6 +3467,7 @@ def _check_bwd_flash(q, k, v) -> dict:
         pms, _ = queued_ms(lambda: FA.flash_attention_bwd_plain(*a, dout),
                            k=3)
         times[dtype] = (ms, pms, _sdpa_bwd_ms(F, a, dout))
+        calls[dtype] = ("flash_attention_bwd", [*a, out, dout, lse], {})
     visible = S * (S + 1) // 2
     # recompute S and dO V^T, then dV, dQ and dK: five products
     ops = 10 * B * H * hd * visible
@@ -3401,7 +3491,8 @@ def _check_bwd_flash(q, k, v) -> dict:
             "bf16_bound_ms": max(nbytes / 2 / HBM_BYTES_PER_S,
                                  ops / BF16_OPS_PER_S) * 1e3,
             "bf16_max_abs_err": max(e for n, e in errs.items()
-                                    if "bfloat16" in n)}
+                                    if "bfloat16" in n),
+            "launch_split": _launch_splits(calls)}
 
 
 def _sdpa_bwd_ms(F, a, dout) -> float:
@@ -3478,7 +3569,9 @@ def _check_bwd_scan(args) -> dict:
             "plain_ms": pms, "library_ms": None, "bytes": nbytes,
             "fp32_instructions": instr, "exps": exps,
             "bound_ms": times[route] * 1e3, "bound_by": route,
-            "bounds_ms": {k: v * 1e3 for k, v in times.items()}}
+            "bounds_ms": {k: v * 1e3 for k, v in times.items()},
+            "launch_split": _launch_splits(
+                {"float32": ("ssm_scan_bwd", [*args, hc, dy], {})})["float32"]}
 
 
 def check_train(state: dict) -> None:

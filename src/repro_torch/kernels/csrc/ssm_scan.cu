@@ -7,9 +7,9 @@
 // (B, S, D); bt, ct: (B, S, N); a: (D, N); y: (B, S, D); all float32.  It
 // also writes the final state h_S as h_last (B, D, N): the serving prefill
 // seeds the decode cache with it, where the TPU kernel leaves its carry in
-// VMEM scratch.  Given a non-null h_chunks (B, ceil(S / 32), D, N), it also
-// writes the state after every 32-step chunk, from which the backward kernel
-// (ssm_scan_bwd.cu) recomputes a chunk's states; serving passes null.
+// VMEM scratch.  Given a non-null h_chunks (B, ceil(S / 16), D, N), it also
+// writes the state after every 16 steps, from which the backward kernel
+// (ssm_scan_bwd.cu) recomputes those steps' states; serving passes null.
 //
 // What bounds it: moving dt, x and y (12 bytes per (b, t, d)) at 3.35
 // TB/s, and nearly as much the exponentials, one per (b, t, d, n): the
@@ -44,6 +44,8 @@
 namespace {
 
 constexpr int kChunk = 32;         // steps staged per ring slot
+constexpr int kKeep = 16;          // steps between the states kept in h_chunks
+static_assert(kChunk % kKeep == 0, "a kept state falls inside a chunk");
 constexpr int kStages = 3;         // ring slots
 constexpr int kCh = 32;            // channels per block: one warp's lanes
 constexpr int kWarps = 4;          // state groups per block
@@ -57,10 +59,11 @@ struct Scan {
   const float* a;
   float* y;
   float* h_last;
-  float* h_chunks;  // (B, n_chunks, D, N) states after each chunk, or null
+  float* h_chunks;  // (B, ceil(S / kKeep), D, N) kept states, or null
   int B, S, D, N;
   int vec;          // dt, x and y rows move as 16-byte copies
   int bc_vec;       // so do bt and ct rows
+  int hc_vec;       // kept states leave as 16-byte rows
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -247,6 +250,7 @@ scan_kernel(const Scan p) {
     // between the steps would keep the compiler from hoisting the next
     // steps' loads above it
     float yv[kChunk];
+    float hk[kChunk / kKeep - 1][SPT];   // the chunk's inner kept states
 #pragma unroll
     for (int r = 0; r < kChunk; ++r) {
       const float dtv = dts[r * kCh];
@@ -261,15 +265,36 @@ scan_kernel(const Scan p) {
         acc = fmaf(h[j], cv[j], acc);
       }
       yv[r] = acc;
+      if (r % kKeep == kKeep - 1 && r < kChunk - 1) {
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) hk[r / kKeep][j] = h[j];
+      }
     }
     float* yo = ys + (i & 1) * kWarps * T::kPart + g * T::kPart + c;
 #pragma unroll
     for (int r = 0; r < kChunk; ++r) yo[r * kCh] = yv[r];
     if (p.h_chunks != nullptr && live) {
-      float* hc = p.h_chunks + (((size_t)b * nch + i) * p.D + d) * p.N;
+      const int nkeep = (p.S + kKeep - 1) / kKeep;
 #pragma unroll
-      for (int j = 0; j < SPT; ++j)
-        if (n0 + j < p.N) hc[n0 + j] = h[j];
+      for (int m = 0; m < kChunk / kKeep; ++m) {
+        const int k = i * (kChunk / kKeep) + m;
+        if (k >= nkeep) break;
+        float* hc = p.h_chunks + (((size_t)b * nkeep + k) * p.D + d) * p.N;
+        auto v = [&](int j) {
+          return m < kChunk / kKeep - 1 ? hk[m][j] : h[j];
+        };
+        if (p.hc_vec) {
+#pragma unroll
+          for (int j = 0; j < SPT; j += 4)
+            if (n0 + j < p.N)
+              *reinterpret_cast<float4*>(hc + n0 + j) =
+                  make_float4(v(j), v(j + 1), v(j + 2), v(j + 3));
+        } else {
+#pragma unroll
+          for (int j = 0; j < SPT; ++j)
+            if (n0 + j < p.N) hc[n0 + j] = v(j);
+        }
+      }
     }
   }
   if (nch > 0) {
@@ -320,6 +345,7 @@ extern "C" int ssm_scan(const void* dt, const void* bt, const void* ct,
   p.vec = D % 4 == 0 &&
           ((uintptr_t)dt | (uintptr_t)x | (uintptr_t)y) % 16 == 0;
   p.bc_vec = N % 4 == 0 && ((uintptr_t)bt | (uintptr_t)ct) % 16 == 0;
+  p.hc_vec = N % 4 == 0 && (uintptr_t)h_chunks % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(N <= 16 ? run<4>(p, st) : run<8>(p, st));
 }

@@ -24,10 +24,13 @@ Training differentiates the kernel through ``FlashAttentionFn``: its
 forward launches the kernel with the row log-sum-exp ``lse`` ``(B, H, S)``
 (``flash_attention_fwd``), its backward the hand-written
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: ``dq``, ``dk``,
-``dv`` from ``q, k, v, out, dout, lse``, deterministic).  ``flash_attention``
-goes through it whenever gradients are on and an input requires one.  The
-reference has no backward kernel; its training differentiates plain
-attention with ``jax.grad``.
+``dv`` from ``q, k, v, out, dout, lse``, deterministic), on the tensor cores
+as the forward: a ``dq`` pass per query tile, a ``dk``/``dv`` pass per
+(query head, 64-key tile) into float32 scratch ``(2, B, S, H, hd)`` that
+the wrapper allocates when ``H > KV``, and a last launch that sums each KV
+head's group in head order.  ``flash_attention`` goes through it whenever
+gradients are on and an input requires one.  The reference has no backward
+kernel; its training differentiates plain attention with ``jax.grad``.
 
 A wrapper runs its plain version only for tensors on the CPU (the backward's
 is autograd through ``flash_attention_plain``); for CUDA tensors it launches
@@ -43,7 +46,7 @@ from repro_torch.kernels.build import (D, P, I, check, launch, register,
 register("flash_attention", "flash_attention.cu", "flash_attention",
          [P] * 5 + [I] * 8 + [D])
 register("flash_attention_bwd", "flash_attention_bwd.cu",
-         "flash_attention_bwd", [P] * 10 + [I] * 8 + [D])
+         "flash_attention_bwd", [P] * 11 + [I] * 8 + [D])
 
 HEAD_DIMS = (64, 128, 256)     # head widths the kernel is instantiated for
 MASK_VALUE = -1e30
@@ -134,12 +137,16 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"{HEAD_DIMS}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    # each query head's dk and dv in float32, summed over a KV head's group
+    # by the kernel's last launch (none when every KV head has one)
+    scratch = (torch.empty((2, B, S, H, hd), dtype=torch.float32, device=dev)
+               if H > KV else None)
     if dq.numel():
         launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-               dl.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-               S, H, KV, hd, _dtype_code(q), int(bool(causal)), int(window),
-               scale)
+               dl.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV, hd,
+               _dtype_code(q), int(bool(causal)), int(window), scale)
     return dq, dk, dv
 
 

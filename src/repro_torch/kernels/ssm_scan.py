@@ -24,8 +24,11 @@ Training differentiates the kernel through ``SSMScanFn``: its forward
 launches the kernel keeping the state after every ``CHUNK``-step chunk
 (``ssm_scan_fwd``), its backward the hand-written ``csrc/ssm_scan_bwd.cu``
 (``ssm_scan_bwd``), which walks the chunks in reverse, recomputing each
-chunk's states from the kept one, and gives ``d dt``, ``d bt``, ``d ct``,
-``d x`` and ``d a`` from ``dy`` and ``d h_last`` (deterministic).
+chunk's states from the kept one (the next chunk's inputs prefetched
+through a ``cp.async`` ring, ``d bt`` and ``d ct`` summed over a block's
+channels once a chunk), and gives ``d dt``, ``d bt``, ``d ct``, ``d x`` and
+``d a`` from ``dy`` and ``d h_last`` (deterministic: per-block partials,
+added in a fixed order by a second launch).
 ``ssm_scan`` goes through it whenever gradients are on and an input
 requires one.  The reference has no backward kernel; its training
 differentiates the associative scan with ``jax.grad``.
@@ -46,7 +49,7 @@ register("ssm_scan_bwd", "ssm_scan_bwd.cu", "ssm_scan_bwd",
          [P] * 16 + [I] * 4)
 
 MAX_STATE = 32                 # state width the kernel takes
-CHUNK = 32                     # steps between the states the forward keeps
+CHUNK = 16                     # steps between the states the forward keeps
 CHANNELS = 32                  # channels of a kernel block
 
 

@@ -940,9 +940,19 @@ def _bwd_close(got, want, tol):
                                          (1, 77, 14, 2, 64),     # GQA 7
                                          (1, 63, 2, 1, 256),
                                          (1, 300, 7, 1, 64),
-                                         (4, 512, 14, 2, 64)])   # qwen2's step
+                                         (4, 512, 14, 2, 64),    # qwen2's step
+                                         # the edges of the 64-key and
+                                         # 128-query tiles
+                                         (1, 1, 2, 1, 64),
+                                         (2, 63, 4, 2, 64),
+                                         (1, 65, 4, 4, 128),
+                                         (1, 129, 2, 1, 256),
+                                         # GQA 7, the group sum over four
+                                         # batch rows
+                                         (4, 97, 14, 2, 64)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0),
-                                           (False, 64)])
+                                           (False, 64),
+                                           (True, 37)])  # ends inside a tile
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_equals_plain(dev, B, S, H, KV, hd, causal,
                                                  window, dtype):
@@ -976,7 +986,10 @@ def test_flash_attention_bwd_kernel_equals_plain(dev, B, S, H, KV, hd, causal,
 @pytest.mark.parametrize("B,S,D,N", [(1, 1, 40, 16), (1, 33, 7, 16),
                                      (2, 100, 301, 16), (1, 65, 33, 32),
                                      (3, 37, 5, 17), (2, 5, 7, 0),
-                                     (1, 512, 8192, 16)])
+                                     (1, 512, 8192, 16),
+                                     # the prefetch across a partial last
+                                     # chunk, at 4 and 8 states a thread
+                                     (2, 97, 40, 16), (1, 97, 300, 17)])
 @pytest.mark.parametrize("with_dh", [False, True])
 def test_ssm_scan_bwd_kernel_equals_plain(dev, B, S, D, N, with_dh):
     """``ssm_scan_bwd`` (from the forward's chunk states, ``d h_last`` zero
@@ -990,8 +1003,9 @@ def test_ssm_scan_bwd_kernel_equals_plain(dev, B, S, D, N, with_dh):
     dh = (torch.from_numpy(rng.normal(size=(B, D, N)).astype(np.float32))
           .to(dev) if with_dh else None)
     y, h_last, hc = SS.ssm_scan_fwd(*args)
-    y0, h0 = SS.ssm_scan_plain(*args)
+    y0, h0, hc0 = SS.ssm_scan_chunks_plain(*args)
     _bwd_close(y, y0, 2e-4)
+    _bwd_close(hc, hc0, 2e-4)
     if S:
         _bwd_close(hc[:, -1], h_last, 0.0)
     before = build.LAUNCHES["ssm_scan_bwd"]

@@ -99,7 +99,11 @@ def _ref_attention(q, k, v, causal, window):
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [(1, 37, 2, 2, 16), (2, 40, 4, 2, 8),
-                                         (1, 29, 7, 1, 16)])
+                                         (1, 29, 7, 1, 16),
+                                         # past the card kernel's tile
+                                         # edges (64 keys, 128 queries)
+                                         (1, 65, 4, 2, 64),
+                                         (2, 129, 7, 1, 64)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 9), (False, 0),
                                            (False, 11)])
 def test_flash_attention_backward_matches_jax_grad(B, S, H, KV, hd, causal,
@@ -141,7 +145,8 @@ def test_flash_attention_backward_matches_jax_grad(B, S, H, KV, hd, causal,
 
 
 @pytest.mark.parametrize("B,S,D,N", [(1, 1, 3, 4), (2, 33, 5, 4),
-                                     (1, 70, 6, 3), (2, 40, 4, 0)])
+                                     (1, 70, 6, 3), (2, 40, 4, 0),
+                                     (1, 97, 6, 17)])   # a partial last chunk
 @pytest.mark.parametrize("with_dh", [False, True])
 def test_ssm_scan_backward_matches_jax_grad(B, S, D, N, with_dh):
     """``ssm_scan_bwd`` (its plain version) and ``SSMScanFn`` against
