@@ -126,6 +126,29 @@ Each phase prints one JSON line:
                 its plain version at the main path's full-width shapes, with
                 device times, bounds and a library yardstick; the scan also
                 at the longest prompt;
+``lm_zoo``      the rest of the zoo at full published width, float32, TF32
+                off, one run at a time, depth cut only where 80 GB force it
+                (``depth_cut`` says why): (a) ``phi3.5-moe-42b-a6.6b``, 8
+                of 32 layers, and (b) ``deepseek-v2-236b``, 4 of 60 (the
+                dense layer 0 and 3 MoE layers, MLA), served with prefill
+                admission; (c) ``chameleon-34b``, 8 of 48, ``forward`` on
+                1 x 2,048 tokens with patch embeddings over its 1,024-position
+                prefix, then text-only serving; (d) ``whisper-tiny`` in
+                full, the enc-dec ``forward`` on 2 x 1,500 frames (the
+                flash kernel non-causal in the encoder) and token-by-token
+                serving; (e) ``qwen2-0.5b`` with the int8 KV cache, the
+                ``lm`` phase's first 4 requests.  Each run's window holds
+                its forward and serving; flash and scan launches must equal
+                the layers of their kind times the prefills and forwards.
+                Then, outside it: the same requests with both kernels
+                routed to their plain versions (a, b, c, e) and (b)'s
+                absorbed MLA decode, each under the near-tie rule; (c) and
+                (d)'s forward on the plain path within the logit
+                tolerance; each MoE layer's dropped assignments on the
+                longest prompt; the KV-cache bytes; and the flash kernel
+                against its plain version at (a)'s hd 128 (causal) and (d)'s
+                encoder shape (non-causal, hd 64), with times, bounds and
+                SDPA's;
 ``train``       LM training at full published width, float32, TF32 off,
                 weights drawn on the card from a seeded generator, through
                 the port's launcher (``repro_torch.launch.train``): (a)
@@ -156,7 +179,7 @@ Each phase prints one JSON line:
 
 The main paths are ``fedbench``, ``query_serve``, ``large_star``,
 ``stats``, ``baselines``, ``failover`` and ``spmd`` running once, then
-``lm``, then ``train``, each
+``lm``, then each ``lm_zoo`` run, then ``train``, each
 window with the launch counts set to 0 just before and read just after;
 the kernel checks, all timings and the plan comparisons with the numpy
 backend (but ``query_serve``'s, which launch nothing) run outside those
@@ -2788,8 +2811,6 @@ def phase_lm(state: dict) -> None:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.build import LAUNCHES
-    from repro_torch.models import model as MDL
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2802,47 +2823,95 @@ def phase_lm(state: dict) -> None:
     state["lm_runs"], state["lm"] = [], {}
     for arch, n_slots, ctx, n_req, (lo, hi), max_new in LM_CELLS:
         cfg = get_arch(arch)
-        gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
-        t0 = time.perf_counter()
-        params = MDL.init_params(cfg, gen, torch.float32, DEVICE)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
+        params, t_init = _init_on_card(cfg)
         prompts = _lm_prompts(cfg, n_req, lo, hi)
-        l0 = dict(LAUNCHES)
-        torch.cuda.reset_peak_memory_stats()
-        done, wall, clock, eng = _serve(cfg, params, prompts, n_slots, ctx,
-                                        max_new, use_prefill=True)
-        peak = torch.cuda.max_memory_allocated()
-        launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
-        kname = "ssm_scan" if cfg.family == "ssm" else "flash_attention"
-        if launches[kname] != cfg.n_layers * len(prompts):
-            raise AssertionError(f"{arch}: {launches[kname]} {kname} launches, "
-                                 f"expected {cfg.n_layers} per prefill")
-        for r in done:
-            if len(r.out) != max_new or not all(0 <= t < cfg.vocab
-                                                for t in r.out):
-                raise AssertionError(f"{arch}: request {r.rid} gave {r.out}")
-            if not all(bool(torch.isfinite(x).all()) for x in r.logits):
-                raise AssertionError(f"{arch}: non-finite logits")
-        n_prefill = sum(len(p) for p in prompts)
-        n_gen = sum(len(r.out) for r in done)
-        n_decoded = n_gen - clock.n["prefill"]     # tokens from decode steps
-        state["lm"][arch] = dict(
-            layers=cfg.n_layers, depth_cut=False, d_model=cfg.d_model,
-            params=sum(t.numel() for t in _tensors(params)),
-            n_slots=n_slots, ctx_len=ctx, requests=len(prompts),
-            prompt_lens=[len(p) for p in prompts], max_new=max_new,
-            prefill_tokens=n_prefill, generated_tokens=n_gen,
-            decode_tokens=n_decoded, decode_steps=eng.serve_stats.n_steps,
-            wall_s=wall, init_s=t_init, prefill_s=clock.s["prefill"],
-            decode_s=clock.s["decode"],
-            host_s=wall - clock.s["prefill"] - clock.s["decode"],
-            prefill_tok_s=n_prefill / clock.s["prefill"],
-            decode_tok_s=n_decoded / clock.s["decode"],
-            peak_device_bytes=peak, launches=launches)
+        done, row = _serve_row(cfg, params, prompts, n_slots, ctx, max_new,
+                               use_prefill=True)
+        _check_launches(arch, row["launches"], cfg, prefills=len(prompts))
+        state["lm"][arch] = dict(layers=cfg.n_layers, depth_cut=False,
+                                 d_model=cfg.d_model, init_s=t_init, **row)
         emit("lm", model=arch, nvidia_smi=state["smi"], **state["lm"][arch])
         state["lm_runs"].append((cfg, params, prompts, done, n_slots, ctx,
                                  max_new))
+
+
+def _init_on_card(cfg):
+    """float32 params of ``cfg`` drawn on the card from ``LM_SEED``, and the
+    seconds it took."""
+    import torch
+
+    from repro_torch.models import model as MDL
+
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = MDL.init_params(cfg, gen, torch.float32, DEVICE)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _kernel_layers(cfg) -> dict:
+    """Launches one full-sequence pass of ``cfg`` makes: one flash launch per
+    attention layer (for enc-dec, the encoder's layers too), one scan launch
+    per Mamba layer; MLA attends without the flash kernel."""
+    mamba = sum(cfg.mixer_of(i) == "m" for i in range(cfg.n_layers))
+    attn = 0 if cfg.mla is not None else cfg.n_layers - mamba
+    return {"flash_attention": attn + (cfg.enc_layers if cfg.encdec else 0),
+            "ssm_scan": mamba}
+
+
+def _check_launches(what: str, launches: dict, cfg, prefills: int = 0,
+                    forwards: int = 0) -> dict:
+    """The LM kernels' launches of a run against the layers of their kind
+    times the full-sequence passes (prefills, and forwards, which for
+    enc-dec also run the encoder); returns the expected counts."""
+    per = _kernel_layers(cfg)
+    dec = dict(per, flash_attention=per["flash_attention"]
+               - (cfg.enc_layers if cfg.encdec else 0))
+    want = {k: dec[k] * prefills + per[k] * forwards for k in per}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return want
+
+
+def _serve_row(cfg, params, prompts, n_slots: int, ctx: int, max_new: int,
+               use_prefill: bool):
+    """Serve ``prompts`` once on a fresh engine, with the launch counts read
+    around it: (finished requests by rid, the run's line: sizes, times,
+    rates, peak memory, launches)."""
+    import torch
+
+    from repro_torch.kernels.build import LAUNCHES
+
+    l0 = dict(LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    done, wall, clock, eng = _serve(cfg, params, prompts, n_slots, ctx,
+                                    max_new, use_prefill=use_prefill)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
+    for r in done:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab
+                                            for t in r.out):
+            raise AssertionError(f"{cfg.name}: request {r.rid} gave {r.out}")
+        if not all(bool(torch.isfinite(x).all()) for x in r.logits):
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+    n_prefill = sum(len(p) for p in prompts) if clock.n["prefill"] else 0
+    n_gen = sum(len(r.out) for r in done)
+    n_decoded = n_gen - clock.n["prefill"]     # tokens from decode steps
+    rate = lambda n, t: n / t if t else None  # noqa: E731
+    return done, dict(
+        params=sum(t.numel() for t in _tensors(params)),
+        n_slots=n_slots, ctx_len=ctx, requests=len(prompts),
+        prompt_lens=[len(p) for p in prompts], max_new=max_new,
+        prefill_tokens=n_prefill, generated_tokens=n_gen,
+        decode_tokens=n_decoded, decode_steps=eng.serve_stats.n_steps,
+        wall_s=wall, prefill_s=clock.s["prefill"], decode_s=clock.s["decode"],
+        host_s=wall - clock.s["prefill"] - clock.s["decode"],
+        prefill_tok_s=rate(n_prefill, clock.s["prefill"]),
+        decode_tok_s=rate(n_decoded, clock.s["decode"]),
+        peak_device_bytes=peak, launches=launches,
+        kv_cache_bytes=sum(t.numel() * t.element_size()
+                           for c in eng.caches for t in c.values()))
 
 
 def _tensors(tree):
@@ -2985,13 +3054,15 @@ def _allclose(got, want, tol: float) -> bool:
         bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
-def _check_flash(q, k, v, FA, F) -> dict:
-    """The flash kernel against its plain version at qwen2's full-width
-    prefill shape (float32 and bfloat16, causal, and causal with a window),
-    device times of the causal call in both types, their bounds and the
-    time of ``scaled_dot_product_attention`` on the same inputs (KV heads
-    repeated beforehand, outside the timing).  ``max_abs_err`` is the
-    float32 one (the main path's type), ``bf16_max_abs_err`` the bf16 one."""
+def _check_flash(q, k, v, FA, F, causal: bool = True) -> dict:
+    """The flash kernel against its plain version at a main path's
+    full-width prefill shape (float32 and bfloat16, without and with a
+    window; causal as the caller says: the decoders' prefills are causal,
+    the whisper encoder's self-attention is not), device times of the call
+    without a window in both types, their bounds and the time of
+    ``scaled_dot_product_attention`` on the same inputs (KV heads repeated
+    beforehand, outside the timing).  ``max_abs_err`` is the float32 one
+    (the main path's type), ``bf16_max_abs_err`` the bf16 one."""
     import torch
 
     B, S, H, hd = q.shape
@@ -3001,26 +3072,31 @@ def _check_flash(q, k, v, FA, F) -> dict:
         dt = getattr(torch, dtype)
         a = [t.to(dt).contiguous() for t in (q, k, v)]
         for window in (0, FLASH_WINDOW):
-            got = FA.flash_attention(*a, causal=True, window=window).float()
-            want = FA.flash_attention_plain(*a, causal=True,
+            got = FA.flash_attention(*a, causal=causal, window=window).float()
+            want = FA.flash_attention_plain(*a, causal=causal,
                                             window=window).float()
             if not _allclose(got, want, tol):
-                raise AssertionError(f"flash_attention {dtype} window={window}"
-                                     f" differs from its plain version by "
+                raise AssertionError(f"flash_attention {dtype} causal={causal}"
+                                     f" window={window} differs from its "
+                                     f"plain version by "
                                      f"{float((got - want).abs().max())}")
             errs[f"{dtype}_window{window}"] = float((got - want).abs().max())
     args = [t.contiguous() for t in (q, k, v)]
-    kms, queued = queued_ms(lambda: FA.flash_attention(*args), k=10)
+    kms, queued = queued_ms(lambda: FA.flash_attention(*args, causal=causal),
+                            k=10)
     if not queued:
         raise AssertionError("flash_attention: the host fell behind the card")
-    pms, plain_queued = queued_ms(lambda: FA.flash_attention_plain(*args), k=3)
-    lib_err, lms, lib_queued = _sdpa(FA, F, args)
+    pms, plain_queued = queued_ms(
+        lambda: FA.flash_attention_plain(*args, causal=causal), k=3)
+    lib_err, lms, lib_queued = _sdpa(FA, F, args, causal)
     bf = [t.to(torch.bfloat16).contiguous() for t in args]
-    bf_ms, bf_queued = queued_ms(lambda: FA.flash_attention(*bf), k=10)
+    bf_ms, bf_queued = queued_ms(lambda: FA.flash_attention(*bf, causal=causal),
+                                 k=10)
     if not bf_queued:
         raise AssertionError("flash_attention bf16: the host fell behind")
-    _, bf_lms, bf_lib_queued = _sdpa(FA, F, bf)
-    visible = S * (S + 1) // 2                    # causal (query, key) pairs
+    _, bf_lms, bf_lib_queued = _sdpa(FA, F, bf, causal)
+    # (query, key) pairs the kernel computes
+    visible = S * (S + 1) // 2 if causal else S * S
     ops = 4 * B * H * hd * visible                # QK^T and PV, 2 flops a MAC
     nbytes = 4 * B * S * hd * (2 * H + 2 * KV)    # q, k, v read, o written
     t_b = nbytes / HBM_BYTES_PER_S
@@ -3030,7 +3106,7 @@ def _check_flash(q, k, v, FA, F) -> dict:
     fp32_core = max(t_b, ops / FP32_OPS_PER_S) * 1e3
     tf32x3 = max(t_b, 3 * ops / TF32_OPS_PER_S) * 1e3
     bf16_bound = max(nbytes / 2 / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-    return {"shape": [B, S, H, KV, hd],
+    return {"shape": [B, S, H, KV, hd], "causal": causal,
             "max_abs_err": max(e for n, e in errs.items() if "float32" in n),
             "errors": errs, "kernel_ms": kms, "plain_ms": pms,
             "plain_queued": plain_queued, "library_ms": lms,
@@ -3048,7 +3124,7 @@ def _check_flash(q, k, v, FA, F) -> dict:
                                     if "bfloat16" in n)}
 
 
-def _sdpa(FA, F, args) -> "tuple[float, float, bool]":
+def _sdpa(FA, F, args, causal: bool = True) -> "tuple[float, float, bool]":
     """``scaled_dot_product_attention`` on the flash kernel's inputs (KV
     heads repeated beforehand, outside the timing): its largest difference
     from the kernel and its queued device time."""
@@ -3057,11 +3133,12 @@ def _sdpa(FA, F, args) -> "tuple[float, float, bool]":
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     diff = float((lib.transpose(1, 2).float()
-                  - FA.flash_attention(*args).float()).abs().max())
+                  - FA.flash_attention(*args, causal=causal).float()
+                  ).abs().max())
     ms, queued = queued_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
         k=10)
     return diff, ms, queued
 
@@ -3123,6 +3200,237 @@ def _exp_shared_s(instr: int, exps: int) -> float:
                                                       * exps)))
     return max((instr + share * EXP_POLY_INSTR * exps) / FP32_INSTR_PER_S,
                (1 - share) * exps / EXP_PER_S)
+
+
+# --------------------------------------------------------------------------
+# lm_zoo: the rest of the architecture zoo at full published width
+# --------------------------------------------------------------------------
+
+# (run, arch, layers kept (None: all), engine slots, cache length, requests,
+# prompt lengths drawn in [lo, hi], new tokens per request); float32, TF32
+# off, weights drawn on the card from LM_SEED
+ZOO_RUNS = (("a", "phi3.5-moe-42b-a6.6b", 8, 4, 1088, 4, (256, 1024), 16),
+            ("b", "deepseek-v2-236b", 4, 4, 544, 3, (256, 512), 16),
+            ("c", "chameleon-34b", 8, 2, 544, 2, (256, 512), 16),
+            ("d", "whisper-tiny", None, 4, 128, 4, (8, 64), 16),
+            ("e", "qwen2-0.5b", None, 4, 4096, 4, (512, 3072), 32))
+ZOO_DEPTH_CUT = {
+    "a": "32 layers of float32 weights need about 170 GB; 8 hold 42.7 GB "
+         "(5.03 GB of experts a layer) beside 1.05 GB of embedding and head",
+    "b": "60 layers of float32 weights need about 944 GB; 4 (the dense layer "
+         "0 and 3 MoE layers, 15.1 GB of routed experts each) hold 53.2 GB",
+    "c": "48 layers of float32 weights need about 137 GB; 8 hold 26.4 GB "
+         "(2.77 GB a layer) beside 4.29 GB of embedding and head"}
+ZOO_FORWARD = {"c": (1, 2048), "d": (2, 448)}   # forward batch, tokens
+ZOO_PLAIN_REPLAY = ("a", "b", "c", "e")
+
+
+def _moe_drops(cfg, params, prompt) -> list:
+    """Each MoE layer's dropped assignments in a prefill of ``prompt``:
+    ``moe_ffn`` wrapped to count them from its input while installed."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+
+    drops, orig = [], MOE.moe_ffn
+
+    def counted(p, c, x):
+        drops.append(MOE.dropped(p, c, x))
+        return orig(p, c, x)
+
+    MOE.moe_ffn = counted
+    try:
+        MDL.prefill_with_caches(cfg, params, torch.tensor([prompt],
+                                                          device=DEVICE),
+                                len(prompt))
+    finally:
+        MOE.moe_ffn = orig
+    return drops
+
+
+def _zoo_forward(cfg, params, run: str):
+    """The run's forward batch, drawn on the card from ``LM_SEED``: tokens,
+    and the VLM's ``patch_embeds`` over its prefix or enc-dec's
+    ``frames``."""
+    import torch
+
+    B, S = ZOO_FORWARD[run]
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 2)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (B, S), generator=gen,
+                                     device=DEVICE)}
+    if cfg.vlm_prefix:
+        batch["patch_embeds"] = torch.randn((B, cfg.vlm_prefix, cfg.d_model),
+                                            generator=gen, device=DEVICE)
+    if cfg.encdec:
+        batch["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=DEVICE)
+    return batch
+
+
+def _forward_logits(cfg, params, batch):
+    """(logits, aux, seconds) of one ``forward`` without gradients, timed on
+    the host clock closed by a sync."""
+    import torch
+
+    from repro_torch.models import model as MDL
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = MDL.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    return logits, aux, time.perf_counter() - t0
+
+
+def _compare_runs(done, other) -> dict:
+    """Every request of two serving runs under ``_compare_serving``'s
+    near-tie rule."""
+    ties, worst = 0, 0.0
+    for a, b in zip(done, other):
+        t, w = _compare_serving(a, b)
+        ties, worst = ties + t, max(worst, w)
+    return {"near_ties": ties, "max_logit_diff": worst,
+            "tokens_equal": all(a.out == b.out for a, b in zip(done, other)),
+            "logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL}
+
+
+def _zoo_flash_inputs(cfg, params, run: str, prompts):
+    """The flash kernel's layer-0 inputs on the run's main path: phi3.5-moe's
+    longest prompt (causal, hd 128), or whisper's encoder layer 0 on the
+    forward's frames (non-causal, hd 64, S 1,500)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    if run == "a":
+        toks = torch.tensor([max(prompts, key=len)], device=DEVICE)
+        return _layer0_flash_inputs(cfg, params, toks), True
+    frames = _zoo_forward(cfg, params, run)["frames"]
+    ed = params["encdec"]
+    x = frames + ed["enc_pos"][None, : frames.shape[1]]
+    lp = ed["enc_0"]
+    h = L.rmsnorm(x, lp["mixer_norm"], cfg.norm_eps)
+    pos = torch.arange(frames.shape[1], device=DEVICE)[None]
+    return L._project_qkv(lp["mixer"], cfg, h, pos), False
+
+
+def phase_lm_zoo(state: dict) -> None:
+    """The rest of the zoo at its published width, float32, TF32 off, one
+    run at a time (each freeing the last one's weights), depth cut only
+    where the card's 80 GB force it: (a) phi3.5-moe and (b) deepseek-v2
+    served with prefill admission (MoE; (b) MLA, its decode first without
+    the absorbed projections); (c) chameleon's forward with patch
+    embeddings over its 1,024-position prefix, then text-only serving;
+    (d) whisper's enc-dec forward (the flash kernel non-causal in the
+    encoder) and token-by-token serving; (e) qwen2-0.5b with the int8 KV
+    cache.  Each main path runs with the launch counts set to 0 just before
+    it and read just after (the counts summed into ``lm_zoo_launches``);
+    then, outside those windows, its checks: the same requests again with
+    the kernels routed to their plain versions (``_plain_path``) under the
+    near-tie rule, for (b) also the absorbed decode; (c) and (d)'s forward
+    on the plain path within the logit tolerance; the MoE layers' dropped
+    assignments on the longest prompt; and the flash kernel against its
+    plain version at (a)'s hd 128 and (d)'s non-causal encoder shapes."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.config.base import PerfFlags
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = {k: 0 for k in build.LAUNCHES}
+    state["lm_zoo"], state["lm_zoo_flash"] = {}, {}
+    t_phase = time.perf_counter()
+    for run, arch, layers, n_slots, ctx, n_req, (lo, hi), max_new in ZOO_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        if run == "e":
+            cfg = dataclasses.replace(cfg, perf=PerfFlags(kv_quant_int8=True))
+        params, t_init = _init_on_card(cfg)
+        prompts = (_lm_prompts(cfg, 8, lo, hi)[:n_req] if run == "e"
+                   else _lm_prompts(cfg, n_req, lo, hi))
+        use_prefill = not cfg.encdec
+        row = {"run": run, "layers": cfg.n_layers,
+               "depth_cut": ZOO_DEPTH_CUT.get(run, False),
+               "d_model": cfg.d_model, "init_s": t_init,
+               "param_bytes": 4 * sum(t.numel() for t in _tensors(params))}
+        batch = _zoo_forward(cfg, params, run) if run in ZOO_FORWARD else None
+        # the counted window: the forward, then the serving run
+        build.reset_launches()
+        if batch is not None:
+            logits, aux, fwd_s = _forward_logits(cfg, params, batch)
+            row["forward"] = {"batch": list(batch["tokens"].shape),
+                              "seconds": fwd_s,
+                              "tok_s": batch["tokens"].numel() / fwd_s}
+        done, srow = _serve_row(cfg, params, prompts, n_slots, ctx, max_new,
+                                use_prefill=use_prefill)
+        launches = dict(build.LAUNCHES)
+        srow["launches"] = launches
+        row.update(srow)
+        for k, v in launches.items():
+            total[k] += v
+        row["expected_launches"] = _check_launches(
+            f"lm_zoo ({run})", launches, cfg,
+            prefills=len(prompts) if use_prefill else 0,
+            forwards=int(batch is not None))
+        # the checks, outside the counted window
+        if batch is not None:
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"lm_zoo ({run}): non-finite logits")
+            with _plain_path():
+                plain, paux, _ = _forward_logits(cfg, params, batch)
+            diff = float((logits - plain).abs().max())
+            if not _allclose(logits, plain, LOGIT_ATOL):
+                raise AssertionError(f"lm_zoo ({run}): forward differs from "
+                                     f"the plain path by {diff}")
+            row["forward"].update(plain_max_logit_diff=diff,
+                                  logit_atol=LOGIT_ATOL, logit_rtol=LOGIT_RTOL)
+            del logits, plain
+        if run in ZOO_PLAIN_REPLAY:
+            t0 = time.perf_counter()
+            with _plain_path():
+                plain, _ = _serve_row(cfg, params, prompts, n_slots, ctx,
+                                      max_new, use_prefill=use_prefill)
+            row["plain_replay"] = dict(_compare_runs(done, plain),
+                                       seconds=time.perf_counter() - t0)
+        if run == "b":
+            acfg = dataclasses.replace(cfg, perf=PerfFlags(mla_absorb=True))
+            absorbed, arow = _serve_row(acfg, params, prompts, n_slots, ctx,
+                                        max_new, use_prefill=True)
+            row["absorbed_decode"] = dict(_compare_runs(done, absorbed),
+                                          decode_s=arow["decode_s"],
+                                          decode_tok_s=arow["decode_tok_s"])
+        row["drops"] = (_moe_drops(cfg, params, max(prompts, key=len))
+                        if cfg.moe is not None else None)
+        if run == "e":
+            hd, kv = cfg.hd, cfg.n_kv_heads
+            row["kv_cache_bytes_float32"] = (2 * cfg.n_layers * n_slots * ctx
+                                             * kv * hd * 4)
+        if run in ("a", "d"):
+            (q, k, v), causal = _zoo_flash_inputs(cfg, params, run, prompts)
+            key = "hd128_causal" if causal else "encoder_noncausal"
+            state["lm_zoo_flash"][key] = dict(
+                _check_flash(q, k, v, FA, F, causal=causal), run=run,
+                model=arch)
+            del q, k, v
+        state["lm_zoo"][run] = dict(row, model=arch)
+        emit("lm_zoo", model=arch, nvidia_smi=state["smi"], **row)
+        del params, done, batch
+    state["lm_zoo_launches"] = total
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_zoo_flash", nvidia_smi=state["smi"],
+         seconds=time.perf_counter() - t_phase, **state["lm_zoo_flash"])
 
 
 # --------------------------------------------------------------------------
@@ -3720,14 +4028,26 @@ def summary(state: dict) -> dict:
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces,
          "launches": state["main_launches"][name],
-         "max_abs_err": state["lm_kernels"][name]["max_abs_err"],
+         "max_abs_err": max([state["lm_kernels"][name]["max_abs_err"]] + [
+             row["max_abs_err"] for row in state["lm_zoo_flash"].values()
+             if name == "flash_attention"]),
          "ms": state["lm_kernels"][name]["kernel_ms"],
          "plain_ms": state["lm_kernels"][name]["plain_ms"],
          "bound_ms": state["lm_kernels"][name]["bound_ms"],
          "bound_by": state["lm_kernels"][name]["bound_by"],
          "library_ms": state["lm_kernels"][name]["library_ms"],
          **{k: state["lm_kernels"][name][k] for k in LM_EXTRA_KEYS
-            if k in state["lm_kernels"][name]}}
+            if k in state["lm_kernels"][name]},
+         # the lm_zoo runs: each one's launches, and flash's two new shapes
+         "lm_zoo_launches": {
+             f"({run}) {row['model']}, {row['layers']} layers":
+             row["launches"].get(name, 0)
+             for run, row in state["lm_zoo"].items()},
+         **({"lm_zoo_cases": {key: {k: row[k] for k in (
+             "model", "shape", "causal", "max_abs_err", "kernel_ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_ms",
+             "bf16_library_ms")} for key, row in state["lm_zoo_flash"].items()}}
+            if name == "flash_attention" else {})}
         for name, replaces in LM_KERNELS] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3784,10 +4104,12 @@ def main() -> int:
     phase_lm(state)
     lm_launches = dict(build.LAUNCHES)
     check_lm(state)
+    phase_lm_zoo(state)        # resets and reads the counts around each run
     build.reset_launches()
     phase_train(state)
     state["main_launches"] = {k: launches.get(k, 0) + lm_launches.get(k, 0)
-                              + v for k, v in build.LAUNCHES.items()}
+                              + state["lm_zoo_launches"].get(k, 0) + v
+                              for k, v in build.LAUNCHES.items()}
     for k, v in state["main_launches"].items():
         if v == 0:
             raise AssertionError(f"{k} was never launched on the main path")

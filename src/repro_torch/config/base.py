@@ -6,8 +6,9 @@ smoke tests while preserving the structural features (layer pattern,
 MoE/MLA/SSM blocks, GQA ratios).  A copy of the reference's
 ``config/base.py``: the same data, so both packages build the same models.
 
-Of the ``PerfFlags``, the port's models read none but ``kv_quant_int8``
-(which they refuse for now): its prefill attention is always the flash
+Of the ``PerfFlags``, the port's models read ``kv_quant_int8`` (the int8
+KV cache) and ``mla_absorb`` (MLA's absorbed decode), and the training loss
+``chunked_loss``/``loss_chunk``: its prefill attention is always the flash
 kernel (``chunked_attention``/``attn_chunk`` have no effect) and its
 selective scan walks the whole sequence in one kernel (``mamba_chunk`` has
 no effect).

@@ -10,8 +10,8 @@ generator, the resumable data loader, the train step (microbatching,
 optional int8 gradient compression with error feedback), atomic
 checkpointing with restart, a heartbeat, and a checkpoint on SIGTERM.  The
 reference's mesh and shardings have no counterpart here: the port trains
-on one device.  The VLM and encoder-decoder configurations are refused by
-the model (their extras are not ported).
+on one device.  As the reference's, the launcher feeds the VLM zero patch
+embeddings and the encoder-decoder zero frames.
 
 ``main(argv)`` parses the reference's flags (plus ``--device``) and calls
 ``train(cfg, args)``, which a caller may also call with a configuration of
@@ -129,6 +129,12 @@ def train(cfg: ArchConfig, args: argparse.Namespace) -> dict:
         t0 = time.perf_counter()
         batch = {k: torch.from_numpy(v).long().to(dev)
                  for k, v in loader.batch_at(step).items()}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (args.batch, cfg.vlm_prefix, cfg.d_model), device=dev)
+        if cfg.encdec:
+            batch["frames"] = torch.zeros(
+                (args.batch, cfg.enc_seq, cfg.d_model), device=dev)
         if args.compress_grads:
             params, opt_state, metrics, error_fb = step_fn(params, opt_state,
                                                            batch, error_fb)

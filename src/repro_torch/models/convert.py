@@ -4,11 +4,12 @@ caches across to the port, and the port's params back.
 The reference stacks the layers of each repeating group (``groups`` leaves
 carry a leading group axis, ``slot_<s>`` per position in the pattern) and
 keeps irregular leading layers as ``prelude_<i>``; the port keeps one dict
-per layer.  ``tree_from_jax`` and the functions built on it take the
-reference's trees as numpy arrays (``jax.tree.map(np.asarray, tree)``) and
-return the port's layout, so both packages can run the same weights from
-one seed; ``params_to_jax`` restacks the port's.  ``reference_leaves`` names
-the reference leaf each port tensor belongs to: the optimizer and the
+per layer (enc-dec's ``encdec`` subtree is the same in both).
+``tree_from_jax`` and the functions built on it take the reference's trees
+as numpy arrays (``jax.tree.map(np.asarray, tree)``) and return the port's
+layout, so both packages can run the same weights from one seed;
+``params_to_jax`` restacks the port's.  ``reference_leaves`` names the
+reference leaf each port tensor belongs to: the optimizer and the
 gradient compression take statistics over a whole reference leaf (the same
 slot across groups, a prelude layer alone), so the port groups its tensors
 the same way for them.
@@ -57,6 +58,8 @@ def tree_from_jax(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
     out = {k: _tensor(tree[k], device)
            for k in ("embed", "final_norm", "lm_head") if k in tree}
     out["layers"] = _per_layer(cfg, tree, device)
+    if "encdec" in tree:
+        out["encdec"] = _convert(tree["encdec"], device)
     return out
 
 
@@ -129,6 +132,9 @@ def params_to_jax(cfg: ArchConfig, params: dict) -> dict:
 
 
 def caches_from_jax(cfg: ArchConfig, tree: dict, device="cuda") -> list:
-    """The port's decode caches (one dict per layer) from the reference's
-    cache tree as numpy arrays."""
-    return _per_layer(cfg, tree, device)
+    """The port's decode caches (one dict per layer, then enc-dec's
+    ``{"enc_out"}``) from the reference's cache tree as numpy arrays."""
+    out = _per_layer(cfg, tree, device)
+    if "enc_out" in tree:
+        out.append({"enc_out": _tensor(tree["enc_out"], device)})
+    return out

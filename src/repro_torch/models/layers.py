@@ -144,11 +144,18 @@ def cache_insert(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
-def _refuse_int8(cfg: ArchConfig) -> None:
-    if cfg.perf.kv_quant_int8:
-        raise NotImplementedError(
-            "int8 KV cache (PerfFlags.kv_quant_int8) is not ported yet "
-            "(ROADMAP.md open item 1, queue item 9)")
+def _quant_kv(t: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """t: (B, T, KV, hd) -> int8 values and per-(token, head) float32
+    scales.  ``torch.round`` rounds half to even, as ``jnp.round``."""
+    tf = t.float()
+    s = torch.clamp(tf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(tf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _dequant(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 cache values times their scales, multiplied in ``dtype``."""
+    return q.to(dtype) * s[..., None].to(dtype)
 
 
 def attention_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
@@ -156,16 +163,24 @@ def attention_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     """One-token decode against a preallocated KV cache (plain, as in the
     reference).
 
-    cache: {"k": (B, S_ctx, KV, hd), "v": same}, written in place at
-    ``pos`` (() shared or (B,) per-slot, the index the new token writes
-    to); attends to [0, pos].
+    cache: {"k": (B, S_ctx, KV, hd), "v": same} (+ "k_scale"/"v_scale"
+    (B, S_ctx, KV) float32 when the cache is int8,
+    ``PerfFlags.kv_quant_int8``), written in place at ``pos`` (() shared or
+    (B,) per-slot, the index the new token writes to); attends to [0, pos].
     """
-    _refuse_int8(cfg)
     B = x.shape[0]
     positions = decode_positions(pos, B)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    k = cache_insert(cache["k"], k_new, pos)
-    v = cache_insert(cache["v"], v_new, pos)
+    if cfg.perf.kv_quant_int8:
+        for name, new in (("k", k_new), ("v", v_new)):
+            qv, sc = _quant_kv(new)
+            cache_insert(cache[name], qv, pos)
+            cache_insert(cache[name + "_scale"], sc, pos)
+        k = _dequant(cache["k"], cache["k_scale"], x.dtype)
+        v = _dequant(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        k = cache_insert(cache["k"], k_new, pos)
+        v = cache_insert(cache["v"], v_new, pos)
     S_ctx = k.shape[1]
     scores = gqa_scores(q, k).float()                 # (B, KV, G, 1, S_ctx)
     j = torch.arange(S_ctx, device=x.device)[None, None, None, None, :]

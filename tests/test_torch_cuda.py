@@ -1103,3 +1103,149 @@ def test_train_step_on_card_equals_cpu(dev, arch):
         assert abs(mc[k] - mp[k]) <= 1e-4 * max(1.0, abs(mp[k])), k
     for a, b in zip(pc, pp):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# the rest of the zoo at reduced width (head width 64, so the flash kernel
+# takes it); the int8 KV cache on qwen2
+ZOO = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "jamba-1.5-large-398b",
+       "chameleon-34b", "qwen2-0.5b-int8", "whisper-tiny"]
+
+
+def _zoo_cfg(name):
+    import dataclasses
+
+    from repro_torch.config.base import PerfFlags, reduced_config
+    from repro_torch.configs import get_arch
+
+    cfg = reduced_config(get_arch(name.removesuffix("-int8")), head_dim=64)
+    if name.endswith("-int8"):
+        cfg = dataclasses.replace(cfg, perf=PerfFlags(kv_quant_int8=True))
+    return cfg
+
+
+def _zoo_params(name, dev):
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import model as MDL
+
+    cfg = _zoo_cfg(name)
+    cpu = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    return cfg, cpu, tree_map(lambda t: t.to(dev), cpu)
+
+
+def _kernel_layers(cfg) -> dict:
+    """Launches one full-sequence pass makes: one flash launch per attention
+    layer (and, for enc-dec, per encoder layer), one scan launch per Mamba
+    layer; MLA attends without the flash kernel."""
+    mamba = sum(cfg.mixer_of(i) == "m" for i in range(cfg.n_layers))
+    attn = 0 if cfg.mla is not None else cfg.n_layers - mamba
+    return {"flash_attention": attn + (cfg.enc_layers if cfg.encdec else 0),
+            "ssm_scan": mamba}
+
+
+def _launched(before) -> dict:
+    return {k: build.LAUNCHES[k] - before[k]
+            for k in ("flash_attention", "ssm_scan")}
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_prefill_and_serving_on_card_equal_cpu(dev, name):
+    """Each new family on the card against the CPU port on the same
+    weights: prefill logits and every cache within 1e-4 (enc-dec: the
+    forward with ``frames``; the VLM: also the forward with
+    ``patch_embeds``), the kernels launched once per layer of their kind,
+    and the greedy tokens of ``ServeEngine`` (prefill admission, enc-dec
+    token by token) equal."""
+    from repro_torch.models import model as MDL
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, cpu, card = _zoo_params(name, dev)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (1, 150)))
+    want_launches = _kernel_layers(cfg)
+    if cfg.encdec or cfg.vlm_prefix:
+        batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (2, 96)))}
+        if cfg.encdec:
+            batch["frames"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        else:
+            batch["patch_embeds"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.vlm_prefix, cfg.d_model)).astype(np.float32))
+        before = dict(build.LAUNCHES)
+        with torch.no_grad():
+            got, gaux = MDL.forward(cfg, card, {k: v.to(dev)
+                                                for k, v in batch.items()})
+            want, waux = MDL.forward(cfg, cpu, batch)
+        assert _launched(before) == want_launches
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    if not cfg.encdec:
+        before = dict(build.LAUNCHES)
+        got, gc = MDL.prefill_with_caches(cfg, card, toks.to(dev), 192)
+        assert _launched(before) == want_launches
+        want, wc = MDL.prefill_with_caches(cfg, cpu, toks, 192)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for a, b in zip(gc, wc):
+            for key in b:
+                assert a[key].dtype == b[key].dtype
+                if b[key].dtype == torch.int8:      # a rounding flip at most
+                    assert int((a[key].cpu().int() - b[key].int()).abs()
+                               .max()) <= 1
+                else:
+                    torch.testing.assert_close(a[key].cpu(), b[key],
+                                               rtol=1e-4, atol=1e-4)
+    outs = []
+    for params, device in ((card, dev), (cpu, "cpu")):
+        eng = ServeEngine(cfg, params, n_slots=2, ctx_len=192,
+                          use_prefill=True, device=device)
+        for i, n in enumerate((150, 40, 7)):
+            eng.submit(Request(rid=i, prompt=toks[0, :n].tolist(), max_new=6))
+        outs.append([r.out for r in sorted(eng.drain(), key=lambda r: r.rid)])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+def test_moe_prefill_on_card_is_bitwise_repeatable(dev, name):
+    """Two identical MoE prefills on the card give the same bits: the
+    combine sums each token's experts in a fixed order, without atomics."""
+    from repro_torch.models import model as MDL
+
+    cfg, _, card = _zoo_params(name, dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab, (1, 300))).to(dev)
+    runs = [MDL.prefill_with_caches(cfg, card, toks, 320) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    x = torch.randn((2, 150, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    from repro_torch.models import moe as MOE
+
+    lp = card["layers"][-1]["ffn"]
+    a, aux_a = MOE.moe_ffn(lp, cfg, x)
+    b, aux_b = MOE.moe_ffn(lp, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+def test_moe_gradients_on_card_reach_every_leaf(dev, name):
+    """F3's lesson for the new families: on the card every leaf gets a
+    nonzero gradient (router, experts, shared experts, MLA projections and
+    norms, the dense prelude layer), within 1e-4 of the CPU's."""
+    from repro_torch.common.tree import leaves, named_leaves
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg, cpu, card = _zoo_params(name, dev)
+    batch = TokenLoader(vocab=cfg.vocab, batch=2, seq=96, seed=5).batch_at(0)
+    outs = []
+    for params, where in ((card, dev), (cpu, "cpu")):
+        _, _, aux, grads = loss_and_grads(cfg, params, {
+            k: torch.from_numpy(v).long().to(where) for k, v in batch.items()})
+        outs.append(grads)
+        assert float(aux) > 0
+    for path, g in named_leaves(outs[0]):
+        assert g is not None and float(g.abs().max()) > 0, path
+    for a, b in zip(leaves(outs[0]), leaves(outs[1])):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)

@@ -377,3 +377,52 @@ def test_token_loader_equals_reference_bit_for_bit(seed, step, dp_rank,
     it = iter(TokenLoader(**kw))
     np.testing.assert_array_equal(next(it)["tokens"],
                                   RefLoader(**kw).batch_at(0)["tokens"])
+
+
+ZOO = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "jamba-1.5-large-398b",
+       "whisper-tiny", "chameleon-34b"]
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_gradients_and_train_step_match_reference(arch):
+    """The rest of the zoo: ``loss_and_grads`` against ``jax.grad`` of the
+    reference's loss (every leaf, the MoE aux loss included in the loss),
+    then one AdamW step (``eps`` 1, as above) of ``make_train_step``
+    against the reference's AdamW on its gradients (the reference compiled
+    once per configuration): params and metrics within 1e-4.  Enc-dec takes
+    ``frames``, the VLM ``patch_embeds``."""
+    cfg, rcfg, tree, rparams, params = perturbed_params(arch)
+    params = tree_map(torch.clone, params)      # updated in place
+    nb, tb = _batch(cfg, batch=2, seq=16, seed=4)
+    rng = np.random.default_rng(4)
+    if cfg.encdec:
+        nb["frames"] = rng.normal(size=(2, cfg.enc_seq, cfg.d_model)
+                                  ).astype(np.float32)
+    if cfg.vlm_prefix:
+        nb["patch_embeds"] = rng.normal(size=(2, cfg.vlm_prefix, cfg.d_model)
+                                        ).astype(np.float32)
+    tb.update({k: torch.from_numpy(v) for k, v in nb.items()
+               if v.dtype == np.float32})
+    (rloss, (rnll, raux)), rgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: RTS.loss_fn(rcfg, p, b), has_aux=True))(rparams,
+                                                             _ref_jnp(nb))
+    loss, nll, aux, grads = TS.loss_and_grads(cfg, params, tb)
+    for a, b in ((loss, rloss), (nll, rnll), (aux, raux)):
+        assert abs(float(a) - float(b)) <= 1e-4 * max(1.0, abs(float(b)))
+    assert (float(aux) > 0) == (cfg.moe is not None)
+    want = tree_from_jax(cfg, jax.tree.map(np.asarray, rgrads), "cpu")
+    got_named = named_leaves(grads)
+    assert [p for p, _ in got_named] == [p for p, _ in named_leaves(want)]
+    for path, g in got_named:
+        _leaf_close(g, _np(get_path(want, path)), 1e-4)
+    ropt, opt = ROPT.adamw(lr=1e-3, eps=1.0), OPT.adamw(lr=1e-3, eps=1.0)
+    rup, _ = ropt.update(rgrads, ropt.init(rparams), rparams)
+    rparams = ROPT.apply_updates(rparams, rup)
+    rm = {"loss": rloss, "nll": rnll, "moe_aux": raux, "grad_norm": np.sqrt(
+        sum(float(np.sum(np.square(np.asarray(g))))
+            for g in jax.tree.leaves(rgrads)))}
+    params, _, m = TS.make_train_step(cfg, opt)(params, opt.init(params), tb)
+    for k in ("loss", "nll", "moe_aux", "grad_norm"):
+        assert abs(float(m[k]) - float(rm[k])) <= \
+            1e-4 * max(1.0, abs(float(rm[k]))), k
+    _trees_close(cfg, params, jax.tree.map(np.asarray, rparams), 1e-4)

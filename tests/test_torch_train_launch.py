@@ -6,7 +6,8 @@ compression improve the NLL; two microbatches against one batch of the
 same data (NLL within ``rtol=1e-5``, params within ``rtol=1e-3,
 atol=1e-5``).  Also: SIGTERM saves a checkpoint and ends the run, the
 printed lines are the reference's, the entry point defaults to the card,
-and the VLM and encoder-decoder configurations are refused."""
+and the VLM and encoder-decoder configurations train on the zero patch
+embeddings and frames the reference's launcher feeds them."""
 import inspect
 import os
 import signal
@@ -117,10 +118,31 @@ def test_prints_the_reference_lines(capsys):
 
 
 def test_launcher_defaults_to_the_card_and_refuses_unported_extras():
+    """The entry point defaults to the card.  The VLM and enc-dec extras
+    are ported now: the launcher feeds zero ``patch_embeds`` and
+    ``frames``, as the reference's (``launch/train.py:100-105``), so the
+    first step's NLL is the loss of the step-0 batch with those zeros on
+    the same initial params."""
+    from repro_torch.config.base import reduced_config
+    from repro_torch.configs import get_arch
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.models import model as MDL
+    from repro_torch.train.train_step import loss_fn
+
     assert T.parse_args([]).device == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(T.parse_args)
     for arch in ("chameleon-34b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_main(["--arch", arch, "--reduced", "--steps", "1",
-                        "--device", "cpu"])
+        out = train_main(["--arch", arch, "--reduced", "--steps", "1",
+                          "--batch", "2", "--seq", "16", "--device", "cpu"])
+        cfg = reduced_config(get_arch(arch))
+        params = MDL.init_params(cfg, T.param_generator(0, "cpu"),
+                                 torch.float32, "cpu")
+        batch = {k: torch.from_numpy(v).long() for k, v in TokenLoader(
+            vocab=cfg.vocab, batch=2, seq=16, seed=0).batch_at(0).items()}
+        key, shape = (("frames", (2, cfg.enc_seq, cfg.d_model)) if cfg.encdec
+                      else ("patch_embeds", (2, cfg.vlm_prefix, cfg.d_model)))
+        batch[key] = torch.zeros(shape)
+        with torch.no_grad():
+            _, (nll, _) = loss_fn(cfg, params, batch)
+        assert abs(out["losses"][0] - float(nll)) <= 1e-5 * float(nll)
