@@ -176,11 +176,33 @@ Each phase prints one JSON line:
                 one ``torch.profiler`` pass over a single call of each
                 (``launch_split``: every device kernel the call launches,
                 in launch order, with its device time).
+``dryrun``      the port's dry-run (``repro_torch.launch.dryrun``) and the
+                federated step at its sizes: (a) five cells traced on fake
+                tensors in processes of their own -- the federated query
+                step on the ``(16, 16)`` and ``(2, 16, 16)`` meshes, and
+                ``qwen2-0.5b``, ``falcon-mamba-7b`` and
+                ``phi3.5-moe-42b-a6.6b`` at ``decode_32k`` on ``(16, 16)``
+                (DTensor over a fake process group; ``torch.__version__`` is
+                printed, since the fake group is PyTorch's internal module)
+                -- each with its three roofline terms and bottleneck on H100
+                peaks; (b) the federated step for real on the ``(16, 16)``
+                mesh resident on the card, ``cap`` 8192, ``table_cap`` 2^20
+                (3.2 GB of triples drawn from ``FED_SEED``, 268 MB of row
+                flags), its rows, overflow and shipped counts, its warm time
+                beside the trace's one-card bound (the per-device HBM bytes
+                times 256 over 3.35 TB/s), and the same step at ``table_cap``
+                2^16 on the card and on the CPU, every output equal; (c)
+                flash attention and the scan traced at the ``lm_kernels``
+                shapes, their booked work and bytes equal to that line's
+                (flash's as tensor-core flops, the scan's as FP32-pipe
+                instructions, ``fp32_flops``).
 
 The main paths are ``fedbench``, ``query_serve``, ``large_star``,
 ``stats``, ``baselines``, ``failover`` and ``spmd`` running once, then
 ``lm``, then each ``lm_zoo`` run, then ``train``, each
-window with the launch counts set to 0 just before and read just after;
+window with the launch counts set to 0 just before and read just after
+(``dryrun``'s step launches none of the hand-written kernels; its line
+shows the counts of its window);
 the kernel checks, all timings and the plan comparisons with the numpy
 backend (but ``query_serve``'s, which launch nothing) run outside those
 windows, so their own launches are not counted.  Then the card's name and power limit, one JSON line with every
@@ -3065,6 +3087,8 @@ def _check_flash(q, k, v, FA, F, causal: bool = True) -> dict:
     (the main path's type), ``bf16_max_abs_err`` the bf16 one."""
     import torch
 
+    from repro_torch.kernels import work
+
     B, S, H, hd = q.shape
     KV = k.shape[2]
     errs = {}
@@ -3095,10 +3119,8 @@ def _check_flash(q, k, v, FA, F, causal: bool = True) -> dict:
     if not bf_queued:
         raise AssertionError("flash_attention bf16: the host fell behind")
     _, bf_lms, bf_lib_queued = _sdpa(FA, F, bf, causal)
-    # (query, key) pairs the kernel computes
-    visible = S * (S + 1) // 2 if causal else S * S
-    ops = 4 * B * H * hd * visible                # QK^T and PV, 2 flops a MAC
-    nbytes = 4 * B * S * hd * (2 * H + 2 * KV)    # q, k, v read, o written
+    # QK^T and PV over the visible pairs; q, k, v read, o written
+    ops, nbytes, _ = work.flash_attention(B, S, H, KV, hd, causal=causal)
     t_b = nbytes / HBM_BYTES_PER_S
     # the least time of float32-accurate work by either route: CUDA cores at
     # the float32 rate, or 3xTF32 (three TF32 products per float32 one) on
@@ -3150,6 +3172,8 @@ def _check_scan(args, SS) -> dict:
     the exponentials shared between the special-function units and the
     FP32 pipe so that both finish together (no single PyTorch call computes
     the scan)."""
+    from repro_torch.kernels import work
+
     dt, bt, ct, x, a = args
     B, S, D = x.shape
     N = bt.shape[2]
@@ -3163,13 +3187,8 @@ def _check_scan(args, SS) -> dict:
     if not queued:
         raise AssertionError("ssm_scan: the host fell behind the card")
     pms, plain_queued = queued_ms(lambda: SS.ssm_scan_plain(*args), k=2)
-    # dt, x read and y written (B, S, D); bt, ct read (B, S, N); a read and
-    # the final state written (D, N) per row
-    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N)
-    # FP32-pipe instructions per (b, t, d, n): dt * a, dtx * B, the update's
-    # multiply-add and y's, beside one exponential; per (b, t, d): dt * x
-    instr = B * S * D * (4 * N + 1)
-    exps = B * S * D * N
+    # bytes moved, FP32-pipe instructions and exponentials (kernels/work.py)
+    instr, nbytes, exps = work.ssm_scan(B, S, D, N)
     t_ops = _exp_shared_s(instr, exps)
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": t_ops}
     route = max(times, key=times.get)
@@ -3743,6 +3762,7 @@ def _check_bwd_flash(q, k, v) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import work
 
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -3776,10 +3796,8 @@ def _check_bwd_flash(q, k, v) -> dict:
                            k=3)
         times[dtype] = (ms, pms, _sdpa_bwd_ms(F, a, dout))
         calls[dtype] = ("flash_attention_bwd", [*a, out, dout, lse], {})
-    visible = S * (S + 1) // 2
     # recompute S and dO V^T, then dV, dQ and dK: five products
-    ops = 10 * B * H * hd * visible
-    nbytes = 4 * B * S * hd * (4 * H + 4 * KV) + 4 * B * H * S
+    ops, nbytes, _ = work.flash_attention_bwd(B, S, H, KV, hd)
     t_b = nbytes / HBM_BYTES_PER_S
     fp32_core = max(t_b, ops / FP32_OPS_PER_S) * 1e3
     tf32x3 = max(t_b, 3 * ops / TF32_OPS_PER_S) * 1e3
@@ -3832,6 +3850,7 @@ def _check_bwd_scan(args) -> dict:
     import torch
 
     from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.kernels import work
 
     dt, bt, ct, x, a = args
     B, S, D = x.shape
@@ -3858,17 +3877,8 @@ def _check_bwd_scan(args) -> dict:
     if not queued:
         raise AssertionError("ssm_scan_bwd: the host fell behind the card")
     pms, _ = queued_ms(lambda: SS.ssm_scan_bwd_plain(*args, dy), k=1)
-    nch = hc.shape[1]
-    # dt, x, dy read and ddt, dx written (B, S, D); bt, ct read and their
-    # gradients written (B, S, N); a read and da written (D, N); the chunk
-    # states read (B, nch, D, N)
-    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
-                  + B * nch * D * N)
-    # FP32-pipe instructions per (b, t, d, n): the state's recomputation (3)
-    # and the reverse step (11), and the sums over d of dB and dC (2),
-    # beside one exponential (kept from the recomputation)
-    instr = B * S * D * N * 16
-    exps = B * S * D * N
+    # bytes moved, FP32-pipe instructions and exponentials (kernels/work.py)
+    instr, nbytes, exps = work.ssm_scan_bwd(B, S, D, N, n_chunk=hc.shape[1])
     t_ops = _exp_shared_s(instr, exps)
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": t_ops}
     route = max(times, key=times.get)
@@ -3954,6 +3964,183 @@ def check_train(state: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
     state["train_kernels"] = kernels
     emit("train_kernels", nvidia_smi=state["smi"], **kernels)
+
+
+# --------------------------------------------------------------------------
+# dryrun: the production meshes on fake tensors, and the federated step
+# --------------------------------------------------------------------------
+
+# (arch, shape) cells of the dry-run traced here: one dense, one SSM and one
+# MoE model, at decode_32k on the (16, 16) mesh; the whole sweep is
+# ``python -m repro_torch.launch.dryrun --arch all --mesh both``
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("falcon-mamba-7b", "decode_32k"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k"))
+FED_CAP = 8192                 # rows per operator and shard
+FED_TABLE_CAP = 1 << 20        # triples per (source, model) shard
+FED_CHECK_TABLE_CAP = 1 << 16  # the size held to the CPU port
+FED_SEED = 61
+FED_PREDICATES = 256           # predicate ids; the stars ask for 0-2 and 3-4
+
+
+def _dryrun_cell(cell: tuple) -> dict:
+    """One dry-run cell in a process of its own (``phase_dryrun``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun as D
+
+    arch, shape, multi = cell
+    r = (D.lower_fed_cell(multi) if arch == "odyssey-fed"
+         else D.lower_cell(arch, shape, multi))
+    # the model cells also say which DTensor internals the release let the
+    # dry-run patch, and which ops ran on replicated inputs
+    return {k: r[k] for k in (
+        "arch", "shape", "mesh", "compute_s", "memory_s", "collective_s",
+        "bottleneck", "flops_per_dev", "fp32_flops_per_dev",
+        "hbm_bytes_per_dev", "collective_bytes_per_dev", "by_collective",
+        "collective_counts", "useful_flops_fraction", "compile_s", "torch",
+        "dtensor_patches", "replicated_ops") if k in r}
+
+
+def fed_tables(table_cap: int, seed: int, device: str):
+    """``(tables, trow)`` of the federated step on the ``(16, 16)`` mesh:
+    every shard full, subjects of model shard ``mm`` congruent to ``mm``
+    (hash-partitioned), ``table_cap // 256`` subjects a shard so that a
+    subject holds each predicate about once, and objects 16 times as spread
+    as the subjects, so that one in 16 first-star objects is a subject the
+    second star may hold: both stars and the join yield rows."""
+    import torch
+
+    d = m = 16
+    g = torch.Generator(device=device).manual_seed(seed)
+    R = max(1, table_cap // FED_PREDICATES)
+    i32 = dict(generator=g, dtype=torch.int32, device=device)
+    mm = torch.arange(m, dtype=torch.int32, device=device).view(1, m, 1)
+    s = torch.randint(0, R, (d, m, table_cap), **i32) * m + mm
+    p = torch.randint(0, FED_PREDICATES, (d, m, table_cap), **i32)
+    o = torch.randint(0, 16 * R * m, (d, m, table_cap), **i32)
+    tables = torch.stack([s, p, o], -1)
+    del s, p, o
+    return tables, torch.ones((d, m, table_cap), dtype=torch.bool,
+                              device=device)
+
+
+def _fed_run(tables, trow, device: str, cap: int = FED_CAP):
+    """The canonical step (``engine/distributed.fed_query_step``) on the
+    ``(16, 16)`` production mesh resident on ``device``: two stars of
+    predicates 0-2 and 3-4, joined on the first star's first object."""
+    import torch
+
+    from repro_torch.engine.distributed import DistributedEngine, fed_query_step
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(device=device)
+    d, m = mesh.shape["data"], mesh.shape["model"]
+
+    def pats(preds):
+        t = torch.full((len(preds), 3), -1, dtype=torch.int32)
+        t[:, 1] = torch.tensor(preds, dtype=torch.int32)
+        return t.to(device).expand(d, m, len(preds), 3).contiguous()
+
+    on = torch.ones((d, m), dtype=torch.bool, device=device)
+    step = fed_query_step(DistributedEngine(None, mesh, cap, tables.shape[2]))
+    args = (tables, trow, pats([0, 1, 2]), on, pats([3, 4]), on)
+    return step, args
+
+
+def phase_dryrun(state: dict) -> None:
+    """(a) the port's dry-run on fake tensors, five cells in processes of
+    their own; (b) the federated step for real at the dry-run's sizes, timed
+    beside its one-card bound and checked at ``FED_CHECK_TABLE_CAP``
+    against the CPU port; (c) the kernels' booked work against the
+    ``lm_kernels`` line's flops and bytes."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.launch import roofline as RL
+
+    t0 = time.perf_counter()
+    cells = [("odyssey-fed", "fed_query", False), ("odyssey-fed", "fed_query", True)]
+    cells += [(a, s, False) for a, s in DRYRUN_CELLS]
+    with ProcessPoolExecutor(len(cells), mp.get_context("spawn")) as pool:
+        rows = list(pool.map(_dryrun_cell, cells))
+    dry_s = time.perf_counter() - t0
+
+    # (b) the step on the card at the dry-run's sizes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    tables, trow = fed_tables(FED_TABLE_CAP, FED_SEED, DEVICE)
+    step, args = _fed_run(tables, trow, DEVICE)
+    build.reset_launches()
+    rows_, valid, ovf, shipped = step(*args)
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    n_rows, n_ovf = int(valid.sum()), int(ovf.sum())
+    fed_ms = cuda_ms(lambda: step(*args), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    del tables, trow, args, rows_, valid, ovf
+    torch.cuda.empty_cache()
+    fed = rows[0]
+    # one card does all 256 shards' traffic
+    bound_ms = fed["hbm_bytes_per_dev"] * 256 / HBM_BYTES_PER_S * 1e3
+    # the same step at FED_CHECK_TABLE_CAP, card against CPU, exactly
+    small = fed_tables(FED_CHECK_TABLE_CAP, FED_SEED, "cpu")
+    got = _fed_run(*(t.to(DEVICE) for t in small), DEVICE)
+    want = _fed_run(*small, "cpu")
+    got = [t.cpu() for t in got[0](*got[1])]
+    want = want[0](*want[1])
+    for name, g, w in zip(("rows", "valid", "overflow", "shipped"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"fed step at table_cap {FED_CHECK_TABLE_CAP}: "
+                                 f"{name} differs between the card and the CPU")
+    check = {"table_cap": FED_CHECK_TABLE_CAP, "rows": int(want[1].sum()),
+             "overflow": int(want[2].sum()), "shipped": int(want[3].sum())}
+    if not (n_rows and check["rows"]):
+        raise AssertionError("fed step: the join yielded no rows")
+    fed_s = time.perf_counter() - t1
+
+    # (c) the booked work of each kernel op against lm_kernels' counts
+    booked = {}
+    for name, row in state["lm_kernels"].items():
+        with FakeTensorMode():
+            if name == "flash_attention":
+                B, S, H, KV, hd = row["shape"]
+                q = torch.empty(B, S, H, hd)
+                k = torch.empty(B, S, KV, hd)
+                with RL.record_ops() as trace:
+                    FA.flash_attention(q, k, k, causal=row["causal"])
+                want_w = (row["flops"], 0, row["bytes"])
+            else:
+                B, S, D, N = row["shape"]
+                x = torch.empty(B, S, D)
+                bt = torch.empty(B, S, N)
+                with RL.record_ops() as trace:
+                    SS.ssm_scan(x, bt, bt, x, torch.empty(D, N))
+                # the scan runs on the FP32 pipe: booked apart, no flops
+                want_w = (0, row["fp32_instructions"], row["bytes"])
+        costs = RL.analyze(trace)
+        got_w = (costs.flops, costs.fp32_flops, costs.hbm_bytes)
+        if got_w != want_w:
+            raise AssertionError(f"{name}: booked (flops, fp32 flops, bytes) "
+                                 f"{got_w}, lm_kernels {want_w}")
+        booked[name] = dict(zip(("flops", "fp32_flops", "bytes"), got_w))
+    seconds = time.perf_counter() - t0
+    emit("dryrun", torch=torch.__version__, nvidia_smi=state["smi"],
+         cells=rows, trace_s=dry_s,
+         fed_step={"mesh": "16x16", "cap": FED_CAP,
+                   "table_cap": FED_TABLE_CAP, "seed": FED_SEED,
+                   "table_bytes": 16 * 16 * FED_TABLE_CAP * 13,
+                   "rows": n_rows, "overflow": n_ovf,
+                   "shipped": int(shipped.sum()), "ms": fed_ms,
+                   "one_card_bound_ms": bound_ms,
+                   "bound_hbm_bytes": fed["hbm_bytes_per_dev"] * 256,
+                   "peak_bytes": peak, "launches": launches,
+                   "cpu_check": check, "seconds": fed_s},
+         booked=booked, seconds=seconds)
 
 
 def _second_input(st: dict, name: str) -> dict:
@@ -4114,6 +4301,7 @@ def main() -> int:
         if v == 0:
             raise AssertionError(f"{k} was never launched on the main path")
     check_train(state)
+    phase_dryrun(state)
     print(state["smi"], flush=True)
     print(json.dumps(summary(state)), flush=True)
     print(json.dumps({"ok": True, "device": {

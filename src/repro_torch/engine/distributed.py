@@ -94,10 +94,12 @@ class DistributedEngine:
     ``cap`` bounds each operator's output rows *per shard*.  The tables and
     every relation live on ``mesh.device``; ``host_syncs`` counts the reads
     back to the host (the overflow flags and shipped counts after each star
-    and join, and the collected result).
+    and join, and the collected result).  With ``fed=None`` the engine holds
+    no tables: its step functions run on tables of ``table_cap`` triples a
+    shard that the caller supplies (``fed_query_step``).
     """
 
-    def __init__(self, fed: Federation, mesh: Mesh, cap: int = 2048,
+    def __init__(self, fed: Federation | None, mesh: Mesh, cap: int = 2048,
                  table_cap: int | None = None, partition_aware: bool = False):
         # partition_aware: skip the model-axis gather of the build side when
         # it is already hash-partitioned by the join key (baseline engines
@@ -108,6 +110,14 @@ class DistributedEngine:
         self.cap = cap
         self.d = mesh.shape["data"]
         self.m = mesh.shape["model"]
+        self._star_fns: dict = {}
+        self.host_syncs = 0
+        if fed is None:
+            if table_cap is None:
+                raise ValueError("an engine without a federation needs table_cap")
+            self.table_cap = table_cap
+            self.tables = self.trow = None
+            return
         if len(fed.sources) > self.d:
             raise UnsupportedShapeError(
                 f"one endpoint per data shard: {len(fed.sources)} sources on "
@@ -134,8 +144,6 @@ class DistributedEngine:
                 trow[sid, mm, :k] = True
         self.tables = torch.from_numpy(tables).to(mesh.device)
         self.trow = torch.from_numpy(trow).to(mesh.device)
-        self._star_fns: dict = {}
-        self.host_syncs = 0
 
     def _host(self, x: torch.Tensor) -> np.ndarray:
         self.host_syncs += 1
@@ -373,3 +381,65 @@ class DistributedEngine:
 
 def _star_subject(tp: TriplePattern):
     return tp.s
+
+
+# ---------------------------------------------------------------------------
+# the canonical federated query step, and its dry-run on fake tensors
+# ---------------------------------------------------------------------------
+
+def fed_query_step(eng: DistributedEngine, n_pat1: int = 3, n_pat2: int = 2,
+                   optimized: bool = False):
+    """The canonical federated query step: two star scans (``n_pat1`` and
+    ``n_pat2`` patterns), the distributed hash join of the first star's
+    first object with the second star's subject, and the collect.  Returns
+    ``step(tables, trow, pat1, on1, pat2, on2) -> (rows, valid, overflow,
+    shipped)``; ``optimized``: the right star joins on its own subject,
+    which is its model-axis partition key, so the build side's model gather
+    is skipped."""
+    star1 = eng._star_fn(n_pat1)
+    star2 = eng._star_fn(n_pat2)
+    exchange = eng._exchange_fn(right_partitioned=optimized)
+    collect = eng._collect_fn(n_pat1 + 1 + n_pat2 + 1)
+
+    def step(tables, trow, pat1, on1, pat2, on2):
+        r1, v1, o1, _ = star1(tables, trow, pat1, on1)
+        r2, v2, o2, _ = star2(tables, trow, pat2, on2)
+        out, ov, o3, shipped = exchange(r1, v1, r2, v2, 1, 0)
+        rows, valid = collect(out, ov)
+        return rows, valid, (o1 | o2 | o3), shipped
+
+    return step
+
+
+def fed_dryrun_lower(mesh: Mesh, cap: int = 8192, table_cap: int = 1 << 20,
+                     n_pat1: int = 3, n_pat2: int = 2, optimized: bool = False):
+    """Trace the canonical federated query step (``fed_query_step``) on an
+    abstract federation sized like FedBench at scale: one endpoint per data
+    shard, ``table_cap`` triples per (source, model) shard, on fake tensors
+    (no memory) of the reference's shapes and dtypes.  Returns the op trace
+    (``launch/roofline.OpTrace``, whole-mesh ops over ``d * m`` shards and
+    the collectives a ``roofline.BookingMesh`` of ``mesh``'s shape books per
+    shard) where the reference returns a jax ``Lowered``.  ``mesh`` is a
+    ``launch/mesh.py`` mesh on the CPU; on the multi-pod mesh the step
+    replicates across ``pod``, so its tensors and trace are the single
+    pod's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.roofline import BookingMesh, record_ops
+
+    mesh = BookingMesh(mesh.shape, mesh.axis_names, mesh.device)
+    eng = DistributedEngine(None, mesh, cap, table_cap)
+    d, m, dev = eng.d, eng.m, mesh.device
+    step = fed_query_step(eng, n_pat1, n_pat2, optimized)
+    i32 = dict(dtype=torch.int32, device=dev)
+    with FakeTensorMode():
+        args = (torch.empty((d, m, table_cap, 3), **i32),
+                torch.empty((d, m, table_cap), dtype=torch.bool, device=dev),
+                torch.empty((d, m, n_pat1, 3), **i32),
+                torch.empty((d, m), dtype=torch.bool, device=dev),
+                torch.empty((d, m, n_pat2, 3), **i32),
+                torch.empty((d, m), dtype=torch.bool, device=dev))
+        base = sum(t.numel() * t.element_size() for t in args) // (d * m)
+        with record_ops(shards=d * m, base_bytes=base) as trace:
+            step(*args)
+    return trace

@@ -27,7 +27,9 @@ PyTorch version (sources under ``csrc/``; built and launched through
 
 ``ops.py`` holds the host entry points (``intersect_count``,
 ``predicate_bitmaps``, ``match_counts``, ``signature_overlap``,
-``flash_attention_gqa``, ``selective_scan``).  Importing this package
+``flash_attention_gqa``, ``selective_scan``); ``work.py`` counts the LM
+kernels' operations and bytes (their bounds, and the dry-run's booking of
+each as one ``torch.library`` operator).  Importing this package
 registers every kernel, so ``build.build_kernels()`` builds all ten.
 """
 from repro_torch.kernels import (dp_layer, flash_attention,  # noqa: F401

@@ -183,6 +183,17 @@ def route(device) -> str:
     raise ValueError(f"no kernel for device {device}")
 
 
+def plain(t) -> bool:
+    """Whether a wrapper runs its plain version for ``t``: a tensor on the
+    CPU that holds data.  A CUDA tensor launches the kernel; a fake tensor,
+    or a DTensor over fake shards (the dry-run's, shapes only), goes through
+    the kernel's operator, whose shape-only form it dispatches to.  Any
+    other device raises."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return route(t.device) == "plain" and not is_fake(t)
+
+
 def wants_grad(*tensors) -> bool:
     """Whether autograd is on and one of ``tensors`` requires a gradient:
     a wrapper then goes through its kernel's autograd Function."""

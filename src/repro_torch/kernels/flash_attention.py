@@ -32,16 +32,22 @@ head's group in head order.  ``flash_attention`` goes through it whenever
 gradients are on and an input requires one.  The reference has no backward
 kernel; its training differentiates plain attention with ``jax.grad``.
 
-A wrapper runs its plain version only for tensors on the CPU (the backward's
-is autograd through ``flash_attention_plain``); for CUDA tensors it launches
-the kernel or raises.
+Each launch is a ``torch.library`` operator of its own
+(``repro_torch::flash_attention``, ``::flash_attention_fwd`` and
+``::flash_attention_bwd``), with a CUDA kernel and a shape-only form
+(``register_fake``): so the dry-run (``launch/dryrun.py``) traces each
+kernel as one op, on fake tensors and DTensors, and books the work that
+``kernels/work.py`` counts for it, never the plain version's.  A wrapper
+runs its plain version only for tensors on the CPU that hold data (the
+backward's is autograd through ``flash_attention_plain``); for CUDA tensors
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (D, P, I, check, launch, register,
-                                      route, wants_grad)
+from repro_torch.kernels.build import (D, P, I, check, launch, plain,
+                                      register, wants_grad)
 
 register("flash_attention", "flash_attention.cu", "flash_attention",
          [P] * 5 + [I] * 8 + [D])
@@ -97,13 +103,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     docstring); differentiable on both devices."""
     dev, (B, S, H, KV, hd) = _check_args(q, k, v)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if route(dev) == "plain":
+    if plain(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     if wants_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                       scale)
-    return _launch_fwd(q, k, v, causal, window, scale, False)[0]
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 int(window), scale)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -112,10 +119,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     the scaled, masked scores, ``(B, H, S)`` float32 (natural log)."""
     dev, (B, S, H, KV, hd) = _check_args(q, k, v)
     scale = hd ** -0.5 if scale is None else float(scale)
-    if route(dev) == "plain":
+    if plain(q):
         return flash_attention_lse_plain(q, k, v, causal=causal,
                                          window=window, scale=scale)
-    return _launch_fwd(q, k, v, causal, window, scale, True)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal),
+                                                     int(window), scale)
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -127,14 +135,23 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dev, (B, S, H, KV, hd) = _check_args(q, k, v)
     scale = hd ** -0.5 if scale is None else float(scale)
     check("dout", dout, q.dtype, (B, S, H, hd), dev)
-    if route(dev) == "plain":
+    if plain(q):
         return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
                                          window=window, scale=scale)
     check("out", out, q.dtype, (B, S, H, hd), dev)
     check("lse", lse, torch.float32, (B, H, S), dev)
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, dout, lse, bool(causal), int(window), scale)
+
+
+def _launch_bwd(q, k, v, out, dout, lse, causal: bool, window: int,
+                scale: float):
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {hd} not in "
                          f"{HEAD_DIMS}")
+    dev = q.device
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     # each query head's dk and dv in float32, summed over a KV head's group
@@ -148,6 +165,44 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV, hd,
                _dtype_code(q), int(bool(causal)), int(window), scale)
     return dq, dk, dv
+
+
+# the three launches as operators: a CUDA kernel each and a shape-only form
+_OPTS = "bool causal, int window, float scale"
+_fwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention",
+    lambda q, k, v, causal, window, scale: _launch_fwd(
+        q, k, v, causal, window, scale, False)[0],
+    mutates_args=(), device_types="cuda",
+    schema=f"(Tensor q, Tensor k, Tensor v, {_OPTS}) -> Tensor")
+_fwd_lse_op = torch.library.custom_op(
+    "repro_torch::flash_attention_fwd",
+    lambda q, k, v, causal, window, scale: _launch_fwd(
+        q, k, v, causal, window, scale, True),
+    mutates_args=(), device_types="cuda",
+    schema=f"(Tensor q, Tensor k, Tensor v, {_OPTS}) -> (Tensor, Tensor)")
+_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", _launch_bwd, mutates_args=(),
+    device_types="cuda",
+    schema=(f"(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, "
+            f"Tensor lse, {_OPTS}) -> (Tensor, Tensor, Tensor)"))
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+@_fwd_lse_op.register_fake
+def _(q, k, v, causal, window, scale):
+    B, S, H, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, H, S), dtype=torch.float32))
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, dout, lse, causal, window, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -33,15 +33,20 @@ added in a fixed order by a second launch).
 requires one.  The reference has no backward kernel; its training
 differentiates the associative scan with ``jax.grad``.
 
-A wrapper runs its plain version only for tensors on the CPU (the backward's
-is autograd through ``ssm_scan_plain``); for CUDA tensors it launches the
-kernel or raises.
+Each launch is a ``torch.library`` operator of its own
+(``repro_torch::ssm_scan``, ``::ssm_scan_fwd`` and ``::ssm_scan_bwd``), with
+a CUDA kernel and a shape-only form (``register_fake``), so the dry-run
+books each as one op with the work ``kernels/work.py`` counts (the plain
+recurrence, a Python loop over the steps, is never traced).  A wrapper runs
+its plain version only for tensors on the CPU that hold data (the
+backward's is autograd through ``ssm_scan_plain``); for CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (P, I, check, launch, register, route,
+from repro_torch.kernels.build import (P, I, check, launch, plain, register,
                                       wants_grad)
 
 register("ssm_scan", "ssm_scan.cu", "ssm_scan", [P] * 8 + [I] * 4)
@@ -95,21 +100,21 @@ def _launch_fwd(dt, bt, ct, x, a, keep_chunks: bool):
 def ssm_scan(dt, bt, ct, x, a):
     """``(y (B, S, D), h_last (B, D, N))`` float32 (see the module
     docstring); differentiable on both devices."""
-    dev, _ = _check_args(dt, bt, ct, x, a)
-    if route(dev) == "plain":
+    _check_args(dt, bt, ct, x, a)
+    if plain(x):
         return ssm_scan_plain(dt, bt, ct, x, a)
     if wants_grad(dt, bt, ct, x, a):
         return SSMScanFn.apply(dt, bt, ct, x, a)
-    return _launch_fwd(dt, bt, ct, x, a, False)[:2]
+    return torch.ops.repro_torch.ssm_scan(dt, bt, ct, x, a)
 
 
 def ssm_scan_fwd(dt, bt, ct, x, a):
     """``(y, h_last, h_chunks)``: ``ssm_scan``'s outputs and the state after
     every ``CHUNK``-step chunk, ``(B, ceil(S / CHUNK), D, N)``."""
-    dev, _ = _check_args(dt, bt, ct, x, a)
-    if route(dev) == "plain":
+    _check_args(dt, bt, ct, x, a)
+    if plain(x):
         return ssm_scan_chunks_plain(dt, bt, ct, x, a)
-    return _launch_fwd(dt, bt, ct, x, a, True)
+    return torch.ops.repro_torch.ssm_scan_fwd(dt, bt, ct, x, a)
 
 
 def ssm_scan_bwd(dt, bt, ct, x, a, h_chunks, dy, dh_last=None):
@@ -122,8 +127,16 @@ def ssm_scan_bwd(dt, bt, ct, x, a, h_chunks, dy, dh_last=None):
     check("dy", dy, torch.float32, (B, S, D), dev)
     if dh_last is not None:
         check("dh_last", dh_last, torch.float32, (B, D, N), dev)
-    if route(dev) == "plain":
+    if plain(x):
         return ssm_scan_bwd_plain(dt, bt, ct, x, a, dy, dh_last)
+    return torch.ops.repro_torch.ssm_scan_bwd(dt, bt, ct, x, a, h_chunks, dy,
+                                              dh_last)
+
+
+def _launch_bwd(dt, bt, ct, x, a, h_chunks, dy, dh_last):
+    B, S, D = x.shape
+    N = bt.shape[2]
+    dev = x.device
     if N > MAX_STATE:
         raise ValueError(f"ssm_scan: state width {N} above {MAX_STATE}")
     grads = [torch.empty_like(t) for t in (dt, bt, ct, x, a)]
@@ -141,6 +154,47 @@ def ssm_scan_bwd(dt, bt, ct, x, a, h_chunks, dy, dh_last=None):
            db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(), B, S,
            D, N)
     return ddt, dbt, dct, dx, da
+
+
+# the three launches as operators: a CUDA kernel each and a shape-only form
+_ARGS = "Tensor dt, Tensor bt, Tensor ct, Tensor x, Tensor a"
+_scan_op = torch.library.custom_op(
+    "repro_torch::ssm_scan",
+    lambda dt, bt, ct, x, a: _launch_fwd(dt, bt, ct, x, a, False)[:2],
+    mutates_args=(), device_types="cuda",
+    schema=f"({_ARGS}) -> (Tensor, Tensor)")
+_scan_fwd_op = torch.library.custom_op(
+    "repro_torch::ssm_scan_fwd",
+    lambda dt, bt, ct, x, a: _launch_fwd(dt, bt, ct, x, a, True),
+    mutates_args=(), device_types="cuda",
+    schema=f"({_ARGS}) -> (Tensor, Tensor, Tensor)")
+_scan_bwd_op = torch.library.custom_op(
+    "repro_torch::ssm_scan_bwd", _launch_bwd, mutates_args=(),
+    device_types="cuda",
+    schema=(f"({_ARGS}, Tensor h_chunks, Tensor dy, Tensor? dh_last) -> "
+            f"(Tensor, Tensor, Tensor, Tensor, Tensor)"))
+
+
+def _fake_outputs(bt, x, keep_chunks: bool):
+    B, S, D = x.shape
+    N = bt.shape[2]
+    out = (torch.empty_like(x), x.new_empty((B, D, N)))
+    return out + (x.new_empty((B, _n_chunks(S), D, N)),) if keep_chunks else out
+
+
+@_scan_op.register_fake
+def _(dt, bt, ct, x, a):
+    return _fake_outputs(bt, x, False)
+
+
+@_scan_fwd_op.register_fake
+def _(dt, bt, ct, x, a):
+    return _fake_outputs(bt, x, True)
+
+
+@_scan_bwd_op.register_fake
+def _(dt, bt, ct, x, a, h_chunks, dy, dh_last):
+    return tuple(torch.empty_like(t) for t in (dt, bt, ct, x, a))
 
 
 class SSMScanFn(torch.autograd.Function):

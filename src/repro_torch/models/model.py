@@ -19,9 +19,10 @@ in ``jax.checkpoint``; the flash attention and selective scan kernels are
 differentiated by their own backward kernels.
 
 Entry points: ``init_params`` / ``forward_hidden`` / ``forward`` /
-``decode_step`` / ``init_decode_caches`` / ``prefill_with_caches``.  Not
-ported yet: the reference's activation-sharding hook
-(``set_activation_policy``) and the dry-run's ``input_specs``.
+``decode_step`` / ``init_decode_caches`` / ``prefill_with_caches`` /
+``input_specs`` (meta tensors for the dry-run).  ``set_activation_policy``
+installs the dry-run's hook on the residual stream, called after each layer
+of the reference's scanned groups (``group_structure``).
 """
 from __future__ import annotations
 
@@ -29,11 +30,32 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config.base import ArchConfig
+from repro_torch.config.base import ArchConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding policy (set by the launcher/dry-run; model code stays
+# mesh-agnostic). kinds: "residual" (between blocks)
+# ---------------------------------------------------------------------------
+
+_ACT_POLICY = None
+
+
+def set_activation_policy(fn) -> None:
+    """fn(x, kind) -> x, e.g. a DTensor ``redistribute`` of the residual
+    stream for sequence-parallel TP; ``None`` removes it."""
+    global _ACT_POLICY
+    _ACT_POLICY = fn
+
+
+def _constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if _ACT_POLICY is None:
+        return x
+    return _ACT_POLICY(x, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -237,12 +259,16 @@ def forward_hidden(cfg: ArchConfig, params: dict, batch: dict,
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
+    # the policy sees the layers the reference scans, not its prelude
+    n_prelude = len(group_structure(cfg)[0])
     for li, lp in enumerate(params["layers"]):
         if remat:
             x, a = checkpoint(_apply_layer, cfg, lp, li, x, positions,
                               use_reentrant=False)
         else:
             x, a = _apply_layer(cfg, lp, li, x, positions)
+        if li >= n_prelude:
+            x = _constrain(x, "residual")
         aux = aux + a
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -386,3 +412,30 @@ def prefill_with_caches(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         caches.append(cache)
     x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return x @ lm_head(cfg, params), caches
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """``meta`` tensors standing in for every model input (no allocation),
+    the reference's ``ShapeDtypeStruct``s."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def meta(shape_, dt):
+        return torch.empty(shape_, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        batch = {"tokens": meta((B, S), i32), "labels": meta((B, S), i32)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": meta((B, S), i32)}
+    else:  # decode
+        batch = {"tokens": meta((B, 1), i32)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["patch_embeds"] = meta((B, cfg.vlm_prefix, cfg.d_model), dtype)
+    if cfg.encdec and shape.kind != "decode":
+        batch["frames"] = meta((B, cfg.enc_seq, cfg.d_model), dtype)
+    return batch

@@ -1249,3 +1249,48 @@ def test_moe_gradients_on_card_reach_every_leaf(dev, name):
     for a, b in zip(leaves(outs[0]), leaves(outs[1])):
         tol = 1e-4 * max(1.0, float(b.abs().max()))
         torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+
+
+def test_kernel_operators_launch_on_card(dev):
+    """The kernels' ``torch.library`` operators (the route the dry-run
+    books) launch the kernel on CUDA tensors, one launch a call, equal to
+    the wrappers; with gradients on, the wrappers still go through the
+    autograd Functions and their backward operators launch the backward
+    kernels."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    q, k, v = (t.to(dev) for t in _qkv(np.random.default_rng(2), 1, 96, 4,
+                                        2, 64, torch.float32))
+    build.reset_launches()
+    out = torch.ops.repro_torch.flash_attention(q, k, v, True, 0, 64 ** -0.5)
+    out2, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 0,
+                                                          64 ** -0.5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 2
+    assert torch.equal(out, FA.flash_attention(q, k, v))
+    torch.testing.assert_close(out2, out, rtol=0, atol=1e-6)
+    assert lse.shape == (1, 4, 96)
+    args = [t.to(dev) for t in _scan_inputs(np.random.default_rng(3), 1, 40,
+                                            64, 16)]
+    y, h = torch.ops.repro_torch.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssm_scan"] == 1
+    y0, h0 = SS.ssm_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    build.reset_launches()
+    q.requires_grad_()
+    out = FA.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.sum().backward()
+    args[0].requires_grad_()
+    y, _ = SS.ssm_scan(*args)
+    assert type(y.grad_fn).__name__ == "SSMScanFnBackward"
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert {k: build.LAUNCHES[k] for k in ("flash_attention",
+                                           "flash_attention_bwd", "ssm_scan",
+                                           "ssm_scan_bwd")} == \
+        {"flash_attention": 1, "flash_attention_bwd": 1, "ssm_scan": 1,
+         "ssm_scan_bwd": 1}
+    assert q.grad is not None and args[0].grad is not None
