@@ -5,6 +5,12 @@
 
 Each phase prints one JSON line:
 
+``analysis``    the port's static analyzer (``repro_torch.analysis``) over its
+                default paths in this checkout (``src/repro_torch``,
+                ``chip_smoke.py``, ``scripts``): files, active and
+                suppressed findings per rule; any active finding (or a
+                stale baseline entry) fails the run.  Host code only: it
+                launches no kernel;
 ``build``       compile the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a (into the ignored ``build/kernels/``),
                 one nvcc per source, all started together;
@@ -382,6 +388,36 @@ def member_selection(sel, b: int):
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
+
+def phase_analysis(state: dict) -> None:
+    from repro_torch.analysis import analyze_paths, diff_baseline, load_baseline
+    from repro_torch.analysis.cli import DEFAULT_BASELINE, DEFAULT_PATHS
+    from repro_torch.kernels import build
+
+    before = sum(build.LAUNCHES.values())
+    t0 = time.perf_counter()
+    result = analyze_paths([str(ROOT / p) for p in DEFAULT_PATHS],
+                           root=str(ROOT))
+    new, stale = diff_baseline(result,
+                               load_baseline(str(ROOT / DEFAULT_BASELINE)))
+    secs = time.perf_counter() - t0
+    suppressed: dict = {}
+    for f in result.suppressed:
+        suppressed[f.rule] = suppressed.get(f.rule, 0) + 1
+    state["analysis"] = dict(
+        paths=list(DEFAULT_PATHS), files=result.files, findings=len(new),
+        baselined=len(result.findings) - len(new), stale=len(stale),
+        findings_by_rule=dict(sorted(result.by_rule.items())),
+        suppressed=len(result.suppressed),
+        suppressed_by_rule=dict(sorted(suppressed.items())),
+        launches=sum(build.LAUNCHES.values()) - before, host_seconds=secs)
+    emit("analysis", **state["analysis"])
+    if new or stale or state["analysis"]["launches"]:
+        for f in new:
+            print(f.render(), file=sys.stderr)
+        raise AssertionError(f"analysis: {len(new)} finding(s), {len(stale)} "
+                             "stale baseline entr(y/ies)")
+
 
 def phase_build(state: dict) -> None:
     from repro_torch.kernels import build
@@ -1541,6 +1577,9 @@ def check_large_star(state: dict) -> None:
             row.update(kernel_ms=kms, queued=queued, call_ms=call,
                        plain_ms=pms, plain_queued=plain_queued,
                        max_abs_err=err, bound_ms=bound, bound_by=by,
+                       # repro: ignore[RPT003] -- a busy share: the sweep's
+                       # device time over the whole plan's elapsed time, two
+                       # boundaries by definition, and no rival pair
                        pairs=sched.n_pairs, device_busy_share=kms / sweep_ms,
                        schedule_bytes=sum(int(a.numel() * a.element_size())
                                           for a in (*args[1:5],
@@ -4264,6 +4303,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     state: dict = {}
+    phase_analysis(state)
     phase_build(state)
     phase_kernels(state)
     # each main path runs with the launch counts set to 0 just before and
