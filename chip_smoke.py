@@ -2572,7 +2572,6 @@ def _spmd_run(fed, queries, plans, cap: int, aware: bool, device: str,
             if plan.fallback:
                 run["skipped"][q.name] = "fallback: variable predicate"
                 continue
-            s0 = eng.host_syncs
             sync()
             t1 = time.perf_counter()
             res = eng.execute(plan)
@@ -2582,7 +2581,7 @@ def _spmd_run(fed, queries, plans, cap: int, aware: bool, device: str,
                 run["first_ms"][q.name] = ms
                 run["first"][q.name] = res
             run["ms"][q.name] = ms
-            run["syncs"][q.name] = eng.host_syncs - s0
+            run["syncs"][q.name] = res.metrics.host_syncs
             run["results"][q.name] = res
     return run
 

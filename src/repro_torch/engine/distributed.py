@@ -20,16 +20,25 @@ optimizer minimizes.  Only the mesh knows where the shards live.
 
 All relations are bounded buffers; overflow flags are summed up to the
 host, which reads them after every star and join.
+
+Each request's ``DistMetrics`` times its stars, joins, read-back and host
+rows on the host clock (each ends in a read to the host, so its time is
+also the device's) and counts its reads, the bytes read back and the slots
+they hold; the same four steps are ``odyssey.exec.*`` spans under a
+profiler (``repro_torch.common.spans``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.common.spans import span
 from repro_torch.core.decomposition import decompose
 from repro_torch.core.planner import JoinPlanNode, PhysicalPlan, PlanNode, SubqueryNode
 from repro_torch.engine import operators as ops
@@ -80,6 +89,27 @@ class DistMetrics:
     transferred_tuples: int = 0
     collective_bytes: int = 0
     overflowed: bool = False
+    host_syncs: int = 0          # reads back to the host
+    readback_bytes: int = 0      # bytes of the collected result read back
+    readback_slots: int = 0      # its row slots: d * m * cap
+    answer_rows: int = 0         # rows returned
+    # host-clock milliseconds of the odyssey.exec.* spans, summed over the
+    # plan; measurements, so left out of equality
+    star_ms: float = field(default=0.0, compare=False)
+    join_ms: float = field(default=0.0, compare=False)
+    readback_ms: float = field(default=0.0, compare=False)
+    rows_ms: float = field(default=0.0, compare=False)
+
+
+@contextlib.contextmanager
+def _timed(metrics: DistMetrics, step: str):
+    """The ``odyssey.exec.<step>`` span over the body; its host-clock
+    milliseconds are added to ``metrics.<step>_ms``."""
+    t0 = time.perf_counter()
+    with span(f"odyssey.exec.{step}"):
+        yield
+    attr = f"{step}_ms"
+    setattr(metrics, attr, getattr(metrics, attr) + (time.perf_counter() - t0) * 1e3)
 
 
 def _enc_pattern(tp: TriplePattern) -> list[int]:
@@ -92,9 +122,10 @@ class DistributedEngine:
     """Executes PhysicalPlans on a (data, model) mesh.
 
     ``cap`` bounds each operator's output rows *per shard*.  The tables and
-    every relation live on ``mesh.device``; ``host_syncs`` counts the reads
-    back to the host (the overflow flags and shipped counts after each star
-    and join, and the collected result).  With ``fed=None`` the engine holds
+    every relation live on ``mesh.device``; a request's
+    ``DistMetrics.host_syncs`` counts its reads back to the host (the
+    overflow flags and shipped counts after each star and join, and the
+    collected result's rows and flags).  With ``fed=None`` the engine holds
     no tables: its step functions run on tables of ``table_cap`` triples a
     shard that the caller supplies (``fed_query_step``).
     """
@@ -111,7 +142,6 @@ class DistributedEngine:
         self.d = mesh.shape["data"]
         self.m = mesh.shape["model"]
         self._star_fns: dict = {}
-        self.host_syncs = 0
         if fed is None:
             if table_cap is None:
                 raise ValueError("an engine without a federation needs table_cap")
@@ -145,8 +175,9 @@ class DistributedEngine:
         self.tables = torch.from_numpy(tables).to(mesh.device)
         self.trow = torch.from_numpy(trow).to(mesh.device)
 
-    def _host(self, x: torch.Tensor) -> np.ndarray:
-        self.host_syncs += 1
+    @staticmethod
+    def _host(x: torch.Tensor, metrics: DistMetrics) -> np.ndarray:
+        metrics.host_syncs += 1
         return x.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -265,20 +296,21 @@ class DistributedEngine:
     def _eval_star(self, node: SubqueryNode, metrics: DistMetrics) -> DistRelation:
         if len(node.stars) != 1:
             raise UnsupportedShapeError("merged leaves run on the exclusive path")
-        pats = [tp for tp in node.patterns if not isinstance(tp.p, Var)]
-        n_pat = len(pats)
-        enc = np.full((n_pat, 3), -1, np.int32)
-        for k, tp in enumerate(pats):
-            enc[k] = _enc_pattern(tp)
-        src_on = np.zeros((self.d, self.m), bool)
-        for s in node.sources:
-            src_on[s] = True
-        dev = self.mesh.device
-        rel, valid, ovf, _ = self._star_fn(n_pat)(
-            self.tables, self.trow,
-            torch.from_numpy(enc).to(dev).expand(self.d, self.m, n_pat, 3),
-            torch.from_numpy(src_on).to(dev))
-        metrics.overflowed |= bool(self._host(ovf.any()))
+        with _timed(metrics, "star"):
+            pats = [tp for tp in node.patterns if not isinstance(tp.p, Var)]
+            n_pat = len(pats)
+            enc = np.full((n_pat, 3), -1, np.int32)
+            for k, tp in enumerate(pats):
+                enc[k] = _enc_pattern(tp)
+            src_on = np.zeros((self.d, self.m), bool)
+            for s in node.sources:
+                src_on[s] = True
+            dev = self.mesh.device
+            rel, valid, ovf, _ = self._star_fn(n_pat)(
+                self.tables, self.trow,
+                torch.from_numpy(enc).to(dev).expand(self.d, self.m, n_pat, 3),
+                torch.from_numpy(src_on).to(dev))
+            metrics.overflowed |= bool(self._host(ovf.any(), metrics))
         subj = pats[0].s.name if isinstance(pats[0].s, Var) else f"_c{id(node)}"
         cols = [subj] + [tp.o.name if isinstance(tp.o, Var) else f"_o{k}"
                          for k, tp in enumerate(pats)]
@@ -320,11 +352,13 @@ class DistributedEngine:
         lkey = left.columns.index(jv)
         rkey = right.columns.index(jv)
         right_part = self.partition_aware and right.partitioned_by == jv
-        rel, valid, ovf, shipped = self._exchange_fn(right_partitioned=right_part)(
-            left.data, left.valid, right.data, right.valid, lkey, rkey)
-        # one read for both: the overflow flag and the shipped count
-        ovf_any, n_ship = self._host(
-            torch.stack([ovf.reshape(()).to(torch.int32), shipped.reshape(())])).tolist()
+        with _timed(metrics, "join"):
+            rel, valid, ovf, shipped = self._exchange_fn(right_partitioned=right_part)(
+                left.data, left.valid, right.data, right.valid, lkey, rkey)
+            # one read for both: the overflow flag and the shipped count
+            ovf_any, n_ship = self._host(
+                torch.stack([ovf.reshape(()).to(torch.int32), shipped.reshape(())]),
+                metrics).tolist()
         metrics.overflowed |= bool(ovf_any)
         metrics.transferred_tuples += n_ship
         metrics.collective_bytes += n_ship * 4 * (len(left.columns) + len(right.columns))
@@ -361,20 +395,27 @@ class DistributedEngine:
             return dataclasses.replace(res, fallback="local:algebra")
         metrics = DistMetrics()
         rel = self._eval_node(plan.root, metrics)
-        data, valid = self._collect_fn(len(rel.columns))(rel.data, rel.valid)
-        data = self._host(data).reshape(-1, len(rel.columns))
-        valid = self._host(valid).reshape(-1)
-        rows = data[valid]
-        for (i, j) in rel.extra_eq:
-            rows = rows[rows[:, i] == rows[:, j]]
-        proj = plan.query.effective_projection()
-        out: dict[str, np.ndarray] = {}
-        for v in proj:
-            out[v] = rows[:, rel.columns.index(v)]
-        if plan.query.distinct and len(rows):
-            stacked = np.stack([out[v] for v in proj], axis=1)
-            _, idx = np.unique(stacked, axis=0, return_index=True)
-            out = {v: out[v][np.sort(idx)] for v in proj}
+        with _timed(metrics, "readback"):
+            data, valid = self._collect_fn(len(rel.columns))(rel.data, rel.valid)
+            metrics.readback_bytes = sum(t.numel() * t.element_size() for t in (data, valid))
+            data = self._host(data, metrics).reshape(-1, len(rel.columns))
+            valid = self._host(valid, metrics).reshape(-1)
+        with _timed(metrics, "rows"):
+            rows = data[valid]
+            for (i, j) in rel.extra_eq:
+                rows = rows[rows[:, i] == rows[:, j]]
+            proj = plan.query.effective_projection()
+            out: dict[str, np.ndarray] = {}
+            for v in proj:
+                out[v] = rows[:, rel.columns.index(v)]
+            n_rows = len(rows)
+            if plan.query.distinct and n_rows:
+                stacked = np.stack([out[v] for v in proj], axis=1)
+                _, idx = np.unique(stacked, axis=0, return_index=True)
+                out = {v: out[v][np.sort(idx)] for v in proj}
+                n_rows = len(idx)
+        metrics.readback_slots = len(valid)
+        metrics.answer_rows = n_rows
         return ExecutionResult(rows=out, metrics=metrics, plan=plan,
                                stats_epoch=plan.stats_epoch)
 

@@ -42,6 +42,7 @@ import time
 from collections import deque
 from dataclasses import dataclass
 
+from repro_torch.common.spans import span
 from repro_torch.core.batch_planner import plan_affinity
 from repro_torch.core.cost import CostModel
 from repro_torch.core.federation import FederatedStats
@@ -72,8 +73,12 @@ class QueryRequest:
     deadline: float = 0.0              # absolute flush-by time (t_submit + slo)
     affinity_tier: str | None = None   # deepest tier shared with its group
     plan_ms: float = 0.0               # this request's own planning cost
+    # engine-clock stamps, in order: submitted, its batch released to
+    # planning, planned, its own execution began, done
     t_submit: float = 0.0
+    t_flushed: float = 0.0
     t_planned: float = 0.0
+    t_exec: float = 0.0
     t_done: float = 0.0
 
     def planning_latency_s(self) -> float:
@@ -227,57 +232,66 @@ class QueryServeEngine:
         """Plan one admitted batch through ``optimize_batch`` and stamp
         per-request attribution.  In pipeline mode this runs on the worker
         thread (the only thread that touches the optimizer)."""
-        if self.feedback is not None:
-            # planner thread == the only safe place to mutate the statistics;
-            # each refresh bumps the epoch, so the plan cache retires exactly
-            # the entries priced under the drifted source
-            applied = self.feedback.apply_pending()
-            if applied:
-                with self._cond:
-                    self.serve_stats.n_stats_refreshes += len(applied)
-        t0 = self._clock()
-        plans = self.optimizer.optimize_batch([r.query for r in batch])
-        t1 = self._clock()
-        report = self.optimizer.last_batch_report
-        for req, plan in zip(batch, plans):
-            req.plan = plan
-            req.cached = plan.cached
-            req.stats_epoch = plan.stats_epoch
-            req.plan_ms = plan.optimization_ms
-            # per-request attribution: a plan-cache hit (or in-batch
-            # duplicate) was ready after its own ~50us rebind — charging it
-            # the whole batch's planning window (the old shared `t1` stamp)
-            # made hits look as slow as cold plans in the latency bench
-            if plan.cached:
-                req.t_planned = min(t0 + plan.optimization_ms * 1e-3, t1)
-            else:
-                req.t_planned = t1
-        with self._cond:
-            self.serve_stats.plan_ms += (t1 - t0) * 1e3
-            self.serve_stats.plan_cache_hits += (report.cache_hits
-                                                 + report.duplicates)
-            self.serve_stats.n_planned += report.n_planned
-            self.serve_stats.n_shapes += report.n_shapes
+        with span("odyssey.serve.plan_batch"):
+            t0 = self._clock()
+            for req in batch:
+                req.t_flushed = t0
+            if self.feedback is not None:
+                # planner thread == the only safe place to mutate the
+                # statistics; each refresh bumps the epoch, so the plan cache
+                # retires exactly the entries priced under the drifted source
+                applied = self.feedback.apply_pending()
+                if applied:
+                    with self._cond:
+                        self.serve_stats.n_stats_refreshes += len(applied)
+                t0 = self._clock()
+            plans = self.optimizer.optimize_batch([r.query for r in batch])
+            t1 = self._clock()
+            report = self.optimizer.last_batch_report
+            for req, plan in zip(batch, plans):
+                req.plan = plan
+                req.cached = plan.cached
+                req.stats_epoch = plan.stats_epoch
+                req.plan_ms = plan.optimization_ms
+                # per-request attribution: a plan-cache hit (or in-batch
+                # duplicate) was ready after its own ~50us rebind — charging
+                # it the whole batch's planning window (the old shared `t1`
+                # stamp) made hits look as slow as cold plans in the latency
+                # bench
+                if plan.cached:
+                    req.t_planned = min(t0 + plan.optimization_ms * 1e-3, t1)
+                else:
+                    req.t_planned = t1
+            with self._cond:
+                self.serve_stats.plan_ms += (t1 - t0) * 1e3
+                self.serve_stats.plan_cache_hits += (report.cache_hits
+                                                     + report.duplicates)
+                self.serve_stats.n_planned += report.n_planned
+                self.serve_stats.n_shapes += report.n_shapes
 
     def _execute_batch(self, batch: "list[QueryRequest]") -> None:
         """Execute one planned batch in the caller's thread; completions
-        land on ``finished`` and the unpolled buffer."""
-        t0 = self._clock()
-        for req in batch:
-            res = self.engine.execute(req.plan)
-            req.rows, req.metrics = res.rows, res.metrics
-            if self.feedback is not None:
-                self.feedback.observe_result(res)   # thread-safe
-            req.done = True
-            req.t_done = self._clock()
-        with self._cond:
-            self.serve_stats.exec_ms += (self._clock() - t0) * 1e3
-            self.serve_stats.n_served += len(batch)
-            self.serve_stats.n_steps += 1
-            self.finished.extend(batch)
-            self._unpolled.extend(batch)
-            self._n_pending -= len(batch)
-            self._cond.notify_all()
+        land on ``finished`` and the unpolled buffer.  A request's execution
+        begins when the one before it in the batch is done."""
+        with span("odyssey.serve.execute_batch"):
+            t0 = t = self._clock()
+            for req in batch:
+                req.t_exec = t
+                with span("odyssey.serve.execute", req.qid):
+                    res = self.engine.execute(req.plan)
+                req.rows, req.metrics = res.rows, res.metrics
+                if self.feedback is not None:
+                    self.feedback.observe_result(res)   # thread-safe
+                req.done = True
+                req.t_done = t = self._clock()
+            with self._cond:
+                self.serve_stats.exec_ms += (self._clock() - t0) * 1e3
+                self.serve_stats.n_served += len(batch)
+                self.serve_stats.n_steps += 1
+                self.finished.extend(batch)
+                self._unpolled.extend(batch)
+                self._n_pending -= len(batch)
+                self._cond.notify_all()
 
     def _take_unpolled(self) -> "list[QueryRequest]":
         with self._cond:

@@ -597,8 +597,13 @@ def test_serve_feedback_refreshes_drifted_source_like_reference():
 
 
 def test_query_request_fields_equal_reference():
-    assert [f.name for f in dataclasses.fields(serve.QueryRequest)] == \
+    """The reference's fields in its order, and the port's two stamps
+    (``t_flushed``, ``t_exec``) in time order among its own."""
+    got = [f.name for f in dataclasses.fields(serve.QueryRequest)]
+    assert [n for n in got if n not in ("t_flushed", "t_exec")] == \
         [f.name for f in dataclasses.fields(ref_serve.QueryRequest)]
+    assert got[got.index("t_submit"):] == ["t_submit", "t_flushed", "t_planned",
+                                           "t_exec", "t_done"]
 
 
 # -- kernel loading from the planner thread -----------------------------------
