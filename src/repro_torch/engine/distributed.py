@@ -21,11 +21,15 @@ optimizer minimizes.  Only the mesh knows where the shards live.
 All relations are bounded buffers; overflow flags are summed up to the
 host, which reads them after every star and join.
 
+The collected result is never read back whole: the answer rows (valid,
+secondary join keys equal) are selected on the device and only they, and
+their count, cross to the host.
+
 Each request's ``DistMetrics`` times its stars, joins, read-back and host
 rows on the host clock (each ends in a read to the host, so its time is
 also the device's) and counts its reads, the bytes read back and the slots
-they hold; the same four steps are ``odyssey.exec.*`` spans under a
-profiler (``repro_torch.common.spans``).
+the select scanned; the same four steps are ``odyssey.exec.*`` spans under
+a profiler (``repro_torch.common.spans``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,10 @@ from repro_torch.engine.local import ExecutionResult, LocalEngine
 from repro_torch.launch.mesh import Mesh
 from repro_torch.query.algebra import BGPQuery, TriplePattern, Var
 from repro_torch.rdf.dataset import Federation
+
+# bytes ``torch.nonzero`` reads back on the card to size its output: one
+# int32 count (one chunk below 2**31 elements)
+NONZERO_COUNT_BYTES = 4
 
 
 class AlgebraFallbackWarning(UserWarning):
@@ -80,7 +88,7 @@ class DistRelation:
     overflow: torch.Tensor   # (d, m) bool, or (1, 1) after an exchange
     columns: list[str]       # var name per column
     partitioned_by: str | None = None  # var whose hash partitions the model axis
-    # secondary join keys (column pairs), filtered host-side at collect
+    # secondary join keys (column pairs), filtered on the device at collect
     extra_eq: list = field(default_factory=list)
 
 
@@ -90,8 +98,8 @@ class DistMetrics:
     collective_bytes: int = 0
     overflowed: bool = False
     host_syncs: int = 0          # reads back to the host
-    readback_bytes: int = 0      # bytes of the collected result read back
-    readback_slots: int = 0      # its row slots: d * m * cap
+    readback_bytes: int = 0      # bytes the read-back copied to the host
+    readback_slots: int = 0      # slots the select scanned: d * m * cap
     answer_rows: int = 0         # rows returned
     # host-clock milliseconds of the odyssey.exec.* spans, summed over the
     # plan; measurements, so left out of equality
@@ -125,7 +133,7 @@ class DistributedEngine:
     every relation live on ``mesh.device``; a request's
     ``DistMetrics.host_syncs`` counts its reads back to the host (the
     overflow flags and shipped counts after each star and join, and the
-    collected result's rows and flags).  With ``fed=None`` the engine holds
+    answer rows' count and the rows).  With ``fed=None`` the engine holds
     no tables: its step functions run on tables of ``table_cap`` triples a
     shard that the caller supplies (``fed_query_step``).
     """
@@ -179,6 +187,15 @@ class DistributedEngine:
     def _host(x: torch.Tensor, metrics: DistMetrics) -> np.ndarray:
         metrics.host_syncs += 1
         return x.cpu().numpy()
+
+    @staticmethod
+    def _nonzero(mask: torch.Tensor, metrics: DistMetrics) -> torch.Tensor:
+        """The ascending indices of ``mask``'s set entries (cub's stable
+        select on the card); a read to the host, since ``torch.nonzero``
+        reads its count back to size its output."""
+        metrics.host_syncs += 1
+        metrics.readback_bytes += NONZERO_COUNT_BYTES
+        return torch.nonzero(mask).squeeze(1)
 
     # ------------------------------------------------------------------
     # SPMD steps, each over all (d, m) shards at once
@@ -396,14 +413,18 @@ class DistributedEngine:
         metrics = DistMetrics()
         rel = self._eval_node(plan.root, metrics)
         with _timed(metrics, "readback"):
-            data, valid = self._collect_fn(len(rel.columns))(rel.data, rel.valid)
-            metrics.readback_bytes = sum(t.numel() * t.element_size() for t in (data, valid))
-            data = self._host(data, metrics).reshape(-1, len(rel.columns))
-            valid = self._host(valid, metrics).reshape(-1)
-        with _timed(metrics, "rows"):
-            rows = data[valid]
+            ncols = len(rel.columns)
+            data, valid = self._collect_fn(ncols)(rel.data, rel.valid)
+            data, keep = data.reshape(-1, ncols), valid.reshape(-1)
+            # select the answer rows on the device: valid slots whose
+            # secondary join keys agree, in slot order (data-major,
+            # model-minor, slot within a shard); only they are read back
             for (i, j) in rel.extra_eq:
-                rows = rows[rows[:, i] == rows[:, j]]
+                keep = keep & (data[:, i] == data[:, j])
+            metrics.readback_slots = keep.numel()
+            rows = self._host(data.index_select(0, self._nonzero(keep, metrics)), metrics)
+            metrics.readback_bytes += rows.nbytes
+        with _timed(metrics, "rows"):
             proj = plan.query.effective_projection()
             out: dict[str, np.ndarray] = {}
             for v in proj:
@@ -414,7 +435,6 @@ class DistributedEngine:
                 _, idx = np.unique(stacked, axis=0, return_index=True)
                 out = {v: out[v][np.sort(idx)] for v in proj}
                 n_rows = len(idx)
-        metrics.readback_slots = len(valid)
         metrics.answer_rows = n_rows
         return ExecutionResult(rows=out, metrics=metrics, plan=plan,
                                stats_epoch=plan.stats_epoch)

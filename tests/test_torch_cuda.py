@@ -922,6 +922,58 @@ def test_spmd_engine_on_card_equals_cpu(dev, which, mesh, aware):
         assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
 
 
+def test_spmd_readback_copies_the_selected_rows_on_card(dev, tmp_path):
+    """On the card the read-back copies the rows the select kept and its
+    count, no more: per plan ``readback_bytes`` is the kept rows' int32
+    bytes (before DISTINCT) plus ``NONZERO_COUNT_BYTES`` and ``host_syncs``
+    the plan's reads + 2; and the device-to-host copies a profiler records
+    over every plan add up to that, one byte per star's overflow flag and
+    eight per join's flag and shipped count."""
+    import dataclasses
+
+    from test_torch_distributed import federation, plan_reads_and_columns
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.federation import build_federated_stats
+    from repro_torch.core.planner import OdysseyOptimizer
+    from repro_torch.engine.distributed import (NONZERO_COUNT_BYTES, DistributedEngine,
+                                                UnsupportedShapeError)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.rdf import generator as G
+
+    fed, queries = federation(G, "selftest", 4)
+    opt = OdysseyOptimizer(build_federated_stats(fed), dp_backend="numpy")
+    eng = DistributedEngine(fed, make_test_mesh((4, 2)), cap=4096, partition_aware=True)
+    plans, want_bytes = [], 0
+    for q in queries:
+        plan = opt.optimize(q)
+        if plan.fallback:
+            continue
+        try:
+            met = eng.execute(plan).metrics
+        except UnsupportedShapeError:
+            continue
+        reads, ncols = plan_reads_and_columns(plan.root)
+        kept = eng.execute(dataclasses.replace(
+            plan, query=dataclasses.replace(plan.query, distinct=False))).metrics
+        assert met.host_syncs == reads + 2, q.name
+        assert met.readback_slots == 4 * 2 * 4096
+        assert met.readback_bytes == 4 * ncols * kept.answer_rows + NONZERO_COUNT_BYTES
+        plans.append(plan)
+        want_bytes += (reads + 1) // 2 + 8 * ((reads - 1) // 2) + met.readback_bytes
+    assert len(plans) >= 6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for plan in plans:
+            eng.execute(plan)
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    copies = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    assert sum(e["args"]["bytes"] for e in copies) == want_bytes
+
+
 # --------------------------------------------------------------------------
 # LM training: the backward kernels of flash attention and the scan
 # --------------------------------------------------------------------------

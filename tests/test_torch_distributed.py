@@ -198,6 +198,191 @@ def test_small_cap_overflows_where_the_reference_does(reference, port_feds, case
     assert any(flags) and not all(flags)
 
 
+def plan_reads_and_columns(node) -> "tuple[int, int]":
+    """(stars + joins, columns) of a conjunctive plan subtree: one read per
+    star and per join, one column per star's subject and per pattern with a
+    bound predicate."""
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.core.planner import JoinPlanNode, SubqueryNode
+    from repro_torch.query.algebra import BGPQuery, Var
+
+    if isinstance(node, SubqueryNode):
+        stars = decompose(BGPQuery(list(node.patterns))).stars if len(node.stars) > 1 \
+            else [node]
+        cols = sum(1 + sum(not isinstance(tp.p, Var) for tp in s.patterns) for s in stars)
+        return 2 * len(stars) - 1, cols
+    assert isinstance(node, JoinPlanNode)
+    (lr, lc), (rr, rc) = (plan_reads_and_columns(node.left),
+                          plan_reads_and_columns(node.right))
+    return lr + rr + 1, lc + rc
+
+
+def host_path_rows(data, valid, columns, extra_eq, query) -> dict:
+    """The read-back as the engine took it before selecting on the device:
+    both collected tensors copied whole, ``data[valid]`` in numpy, the
+    secondary join keys filtered over the surviving rows, then projection
+    and DISTINCT."""
+    ncols = len(columns)
+    rows = data.cpu().numpy().reshape(-1, ncols)[valid.cpu().numpy().reshape(-1)]
+    for (i, j) in extra_eq:
+        rows = rows[rows[:, i] == rows[:, j]]
+    proj = query.effective_projection()
+    out = {v: rows[:, columns.index(v)] for v in proj}
+    if query.distinct and len(rows):
+        stacked = np.stack([out[v] for v in proj], axis=1)
+        _, idx = np.unique(stacked, axis=0, return_index=True)
+        out = {v: out[v][np.sort(idx)] for v in proj}
+    return out
+
+
+def _same_rows(got: dict, want: dict) -> None:
+    assert list(got) == list(want)
+    for v in want:
+        assert got[v].dtype == want[v].dtype == np.int32, v
+        assert got[v].shape == want[v].shape, v
+        assert got[v].tobytes() == want[v].tobytes(), v
+
+
+class _Recorder:
+    """Wraps an engine's ``_eval_node`` and ``_collect_fn``: the root
+    relation of the last plan and copies of its collected tensors."""
+
+    def __init__(self, eng):
+        self.rels, self.collected = [], None
+        eval_node, collect_fn = eng._eval_node, eng._collect_fn
+
+        def eval_rec(node, metrics):
+            rel = eval_node(node, metrics)
+            self.rels.append(rel)           # the root returns last
+            return rel
+
+        def collect_rec(ncols):
+            collect = collect_fn(ncols)
+
+            def run(rel, valid):
+                data, v = collect(rel, valid)
+                self.collected = data.clone(), v.clone()
+                return data, v
+            return run
+
+        eng._eval_node, eng._collect_fn = eval_rec, collect_rec
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[6]] + OVERFLOW_CASES, ids=case_id)
+def test_readback_selects_the_host_paths_rows(port_feds, case):
+    """Per plan, ``execute``'s rows equal, in order, dtype and bytes, what
+    the host path gives from the same collected tensors, and the read-back
+    counts the selected rows' bytes and the select's count: two reads."""
+    import dataclasses
+
+    from repro_torch.engine.distributed import (NONZERO_COUNT_BYTES, DistributedEngine,
+                                                UnsupportedShapeError)
+    from repro_torch.launch.mesh import make_test_mesh
+
+    which, (d, m), cap, aware = case
+    fed, queries, opt = port_feds(which, d)
+    eng = DistributedEngine(fed, make_test_mesh((d, m), device="cpu"), cap=cap,
+                            partition_aware=aware)
+    rec = _Recorder(eng)
+    ran = overflowed = distinct = 0
+    for q in queries:
+        plan = opt.optimize(q)
+        if plan.fallback:
+            continue
+        rec.rels.clear()
+        try:
+            res = eng.execute(plan)
+        except UnsupportedShapeError:
+            continue
+        rel = rec.rels[-1]
+        want = host_path_rows(*rec.collected, rel.columns, rel.extra_eq, plan.query)
+        _same_rows(res.rows, want)
+        # the rows the select kept, before DISTINCT
+        kept = host_path_rows(*rec.collected, rel.columns, rel.extra_eq,
+                              dataclasses.replace(plan.query, distinct=False))
+        n_kept = len(next(iter(kept.values())))
+        met = res.metrics
+        assert met.readback_bytes == 4 * len(rel.columns) * n_kept + NONZERO_COUNT_BYTES
+        assert met.readback_slots == d * m * cap
+        assert met.host_syncs == plan_reads_and_columns(plan.root)[0] + 2
+        ran += 1
+        overflowed += met.overflowed
+        distinct += plan.query.distinct and met.answer_rows < n_kept
+    assert ran >= 6
+    if case in OVERFLOW_CASES:
+        assert overflowed
+    else:
+        assert distinct               # DISTINCT dropped rows somewhere
+
+
+def _built_plan(columns, projection, distinct):
+    """A one-leaf conjunctive plan over ``columns`` (its patterns only
+    name the variables; ``execute`` reads the query's projection and
+    DISTINCT flag)."""
+    from repro_torch.core.planner import PhysicalPlan, SubqueryNode
+    from repro_torch.query.algebra import BGPQuery, Const, TriplePattern, Var
+
+    pats = [TriplePattern(Var(columns[0]), Const(1), Var(c)) for c in columns[1:]]
+    q = BGPQuery(pats, distinct=distinct, projection=projection, name="built")
+    return PhysicalPlan(root=SubqueryNode(stars=[0], patterns=pats, sources=[0]),
+                        query=q, graph=None, selection=None)
+
+
+# (name, value range, share of valid slots, secondary keys, projection,
+# DISTINCT); four columns a-d on a (2, 3) mesh, 16 slots a shard
+BUILT = [("empty", 5, 0.0, [], ["a", "c"], False),
+         ("empty-distinct-eq", 5, 0.0, [(0, 2)], ["b"], True),
+         ("full", 1000, 1.0, [], [], False),
+         ("one-key", 3, 0.5, [(0, 2)], ["d", "a"], False),
+         ("two-keys", 2, 0.7, [(0, 2), (1, 3)], [], False),
+         ("keys-distinct", 2, 0.6, [(1, 3)], ["a", "b"], True),
+         ("distinct", 2, 0.8, [], ["c", "a"], True),
+         ("no-key-matches", 4, 0.5, [(0, 1)], ["a"], False)]
+
+
+@pytest.mark.parametrize("name,hi,share,extra_eq,proj,distinct", BUILT,
+                         ids=[b[0] for b in BUILT])
+def test_readback_select_on_built_relations(name, hi, share, extra_eq, proj,
+                                            distinct):
+    """``execute`` over a ``DistRelation`` built by hand (an engine with no
+    tables, its plan evaluation stubbed): an empty result, secondary join
+    keys, DISTINCT, and a relation stored out of order in memory, each
+    against the host path."""
+    from repro_torch.engine.distributed import (NONZERO_COUNT_BYTES, DistRelation,
+                                                DistributedEngine)
+    from repro_torch.launch.mesh import make_test_mesh
+
+    d, m, cap, columns = 2, 3, 16, ["a", "b", "c", "d"]
+    rng = np.random.default_rng(len(name))
+    # stored column-major, as an operator's column selection leaves it
+    data = torch.from_numpy(
+        rng.integers(0, hi, (4, d, m, cap)).astype(np.int32)).permute(1, 2, 3, 0)
+    valid = torch.from_numpy(rng.random((d, m, cap)) < share)
+    if name == "no-key-matches":
+        data[..., 1] = data[..., 0] + 1
+    rel = DistRelation(data, valid, torch.zeros(d, m, dtype=torch.bool), columns,
+                       extra_eq=extra_eq)
+    eng = DistributedEngine(None, make_test_mesh((d, m), device="cpu"), cap=cap,
+                            table_cap=8)
+    eng._eval_node = lambda node, metrics: rel
+    plan = _built_plan(columns, proj, distinct)
+    res = eng.execute(plan)
+    _same_rows(res.rows, host_path_rows(data, valid, columns, extra_eq, plan.query))
+    keep = valid.reshape(-1).numpy().copy()
+    flat = data.reshape(-1, 4).numpy()
+    for i, j in extra_eq:
+        keep &= flat[:, i] == flat[:, j]
+    n_kept = int(keep.sum())
+    assert (n_kept == 0) == name.startswith(("empty", "no-key"))
+    met = res.metrics
+    assert met.readback_bytes == 16 * n_kept + NONZERO_COUNT_BYTES
+    assert (met.host_syncs, met.readback_slots) == (2, d * m * cap)
+    assert met.answer_rows == len(next(iter(res.rows.values())))
+    # the rows are the host's own: no view of the relation's storage
+    for col in res.rows.values():
+        assert not np.shares_memory(col, data.numpy())
+
+
 def test_algebra_plans_fall_back_to_the_local_engine(port_feds):
     """An OPTIONAL plan degrades to ``LocalEngine`` with a warning and
     ``fallback="local:algebra"``, rows equal the host engine's."""

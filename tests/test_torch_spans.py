@@ -1,10 +1,12 @@
 """The port's spans and per-request counters (``repro_torch.common.spans``,
 ``DistMetrics``' counters and timings, ``QueryRequest``'s stamps) on the
-CPU: the counters against values computed from the plan and the collected
-shapes, rows against the reference's answer, the stamps' order under the
+CPU: the counters against values computed from the plan and the rows the
+read-back kept, rows against the reference's answer, the stamps' order under the
 real and the serving tests' simulated clocks, the spans' nesting under a
 CPU profiler (each executor span inside the per-request span that carries
 the qid), and no profiler range entered while none runs."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,16 +16,13 @@ from repro.core.planner import OdysseyOptimizer as RefOptimizer  # noqa: E402
 from repro.engine.local import LocalEngine as RefLocalEngine  # noqa: E402
 from repro.rdf import generator as RG  # noqa: E402
 from repro_torch.common import spans  # noqa: E402
-from repro_torch.core.decomposition import decompose  # noqa: E402
 from repro_torch.core.federation import build_federated_stats  # noqa: E402
-from repro_torch.core.planner import JoinPlanNode, SubqueryNode  # noqa: E402
-from repro_torch.engine.distributed import (DistMetrics, DistributedEngine,  # noqa: E402
-                                            UnsupportedShapeError)
+from repro_torch.engine.distributed import (NONZERO_COUNT_BYTES, DistMetrics,  # noqa: E402
+                                            DistributedEngine, UnsupportedShapeError)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
-from repro_torch.query.algebra import BGPQuery, Var  # noqa: E402
 from repro_torch.rdf import generator as G  # noqa: E402
 from repro_torch.serve.query import QueryServeEngine  # noqa: E402
-from test_torch_distributed import federation  # noqa: E402
+from test_torch_distributed import federation, plan_reads_and_columns  # noqa: E402
 
 MESH = (4, 2)
 CAP = 1024
@@ -61,20 +60,6 @@ def _engine(fed):
                              partition_aware=True)
 
 
-def _shape(node) -> "tuple[int, int]":
-    """(stars + joins, columns) of a conjunctive plan subtree: one read per
-    star and per join, one column per star's subject and per pattern with a
-    bound predicate."""
-    if isinstance(node, SubqueryNode):
-        stars = decompose(BGPQuery(list(node.patterns))).stars if len(node.stars) > 1 \
-            else [node]
-        cols = sum(1 + sum(not isinstance(tp.p, Var) for tp in s.patterns) for s in stars)
-        return 2 * len(stars) - 1, cols
-    assert isinstance(node, JoinPlanNode)
-    (lr, lc), (rr, rc) = _shape(node.left), _shape(node.right)
-    return lr + rr + 1, lc + rc
-
-
 def test_counters_equal_the_plan_and_the_reference(small):
     fed, queries, stats, ref_rows = small
     from repro_torch.core.planner import OdysseyOptimizer
@@ -91,12 +76,16 @@ def test_counters_equal_the_plan_and_the_reference(small):
             res = eng.execute(plan)
         except UnsupportedShapeError:
             continue
-        reads, ncols = _shape(plan.root)
+        reads, ncols = plan_reads_and_columns(plan.root)
         met = res.metrics
         assert met.host_syncs == reads + 2, q.name
         assert met.readback_slots == d * m * CAP
-        # the collected rows (int32) and their valid flags (bool)
-        assert met.readback_bytes == d * m * CAP * (4 * ncols + 1), q.name
+        # the rows the select kept on the device (int32; DISTINCT comes
+        # after, on the host) and the select's count
+        kept = eng.execute(dataclasses.replace(
+            plan, query=dataclasses.replace(plan.query, distinct=False))).metrics
+        assert met.readback_bytes == kept.readback_bytes == \
+            4 * ncols * kept.answer_rows + NONZERO_COUNT_BYTES, q.name
         n = len(next(iter(res.rows.values())))
         assert met.answer_rows == n == ref_rows[q.name], q.name
         assert min(met.star_ms, met.join_ms, met.readback_ms, met.rows_ms) >= 0.0
