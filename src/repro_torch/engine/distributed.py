@@ -18,8 +18,11 @@ side over the data axis (``Mesh.all_gather``) -- the *transferred tuples* of
 the paper are the rows these collectives move, which is what Odyssey's
 optimizer minimizes.  Only the mesh knows where the shards live.
 
-All relations are bounded buffers; overflow flags are summed up to the
-host, which reads them after every star and join.
+A star scans only its patterns' predicate rows, in the shards of the
+sources its plan selected: beside the tables the engine keeps each shard's
+rows ordered by predicate (``operators.PredicateIndex``), their ranges on
+the host.  All relations are bounded buffers; overflow flags are summed up
+to the host, which reads them after every star and join.
 
 The collected result is never read back whole: the answer rows (valid,
 secondary join keys equal) are selected on the device and only they, and
@@ -27,9 +30,9 @@ their count, cross to the host.
 
 Each request's ``DistMetrics`` times its stars, joins, read-back and host
 rows on the host clock (each ends in a read to the host, so its time is
-also the device's) and counts its reads, the bytes read back and the slots
-the select scanned; the same four steps are ``odyssey.exec.*`` spans under
-a profiler (``repro_torch.common.spans``).
+also the device's) and counts its reads, the bytes read back, the slots the
+stars' scans compared and the slots the select scanned; the same four steps
+are ``odyssey.exec.*`` spans under a profiler (``repro_torch.common.spans``).
 """
 from __future__ import annotations
 
@@ -100,6 +103,7 @@ class DistMetrics:
     host_syncs: int = 0          # reads back to the host
     readback_bytes: int = 0      # bytes the read-back copied to the host
     readback_slots: int = 0      # slots the select scanned: d * m * cap
+    scan_slots: int = 0          # slots the star scans compared: d * m * L a pattern
     answer_rows: int = 0         # rows returned
     # host-clock milliseconds of the odyssey.exec.* spans, summed over the
     # plan; measurements, so left out of equality
@@ -182,6 +186,8 @@ class DistributedEngine:
                 trow[sid, mm, :k] = True
         self.tables = torch.from_numpy(tables).to(mesh.device)
         self.trow = torch.from_numpy(trow).to(mesh.device)
+        # the star scans compare only their predicate's rows (``_eval_star``)
+        self.pred_index = ops.PredicateIndex(tables[..., 1], trow, mesh.device)
 
     @staticmethod
     def _host(x: torch.Tensor, metrics: DistMetrics) -> np.ndarray:
@@ -200,8 +206,29 @@ class DistributedEngine:
     # ------------------------------------------------------------------
     # SPMD steps, each over all (d, m) shards at once
     # ------------------------------------------------------------------
+    def _subject_joins(self, scans):
+        """Subject-join a star's pattern scans, each ``(data, valid, overflow)``
+        with columns [subject, object], shard-local.
+
+        Output columns: [subject, obj_0, ..., obj_{n_pat-1}].
+        """
+        cap = self.cap
+        scans = iter(scans)
+        rel, valid, ovf = next(scans)
+        for k, (nxt, nvalid, o2) in enumerate(scans, 1):
+            rel, valid, o3 = ops.merge_join(rel, valid, 0, nxt, nvalid, 0, cap)
+            # drop duplicated subject col from right side (at ncols_left)
+            keep = list(range(rel.shape[-1]))
+            keep.remove(k + 1)
+            rel = rel[..., keep]
+            ovf = ovf | o2 | o3
+        return rel, valid, ovf
+
     def _star_fn(self, n_pat: int):
-        """Scan + subject-join ``n_pat`` patterns of one star, shard-local.
+        """Scan + subject-join ``n_pat`` patterns of one star over the whole
+        tables (``ops.scan_pattern``), the reference's step; the dry-run's
+        canonical step (``fed_query_step``) runs it.  ``_eval_star`` scans
+        each pattern's predicate rows only, with the same output.
 
         Output columns: [subject, obj_0, ..., obj_{n_pat-1}].
         """
@@ -211,17 +238,9 @@ class DistributedEngine:
 
         def star(tables, trow, patterns, source_on):
             trow = trow & source_on.unsqueeze(-1)
-            rel, valid, ovf = ops.scan_pattern(tables, trow, patterns[:, :, 0],
-                                               cap, (0, 2))
-            for k in range(1, n_pat):
-                nxt, nvalid, o2 = ops.scan_pattern(tables, trow, patterns[:, :, k],
-                                                   cap, (0, 2))
-                rel, valid, o3 = ops.merge_join(rel, valid, 0, nxt, nvalid, 0, cap)
-                # drop duplicated subject col from right side (at ncols_left)
-                keep = list(range(rel.shape[-1]))
-                keep.remove(k + 1)
-                rel = rel[..., keep]
-                ovf = ovf | o2 | o3
+            rel, valid, ovf = self._subject_joins(
+                ops.scan_pattern(tables, trow, patterns[:, :, k], cap, (0, 2))
+                for k in range(n_pat))
             return rel, valid, ovf, ops.count_valid(valid)
 
         self._star_fns[n_pat] = star
@@ -315,18 +334,20 @@ class DistributedEngine:
             raise UnsupportedShapeError("merged leaves run on the exclusive path")
         with _timed(metrics, "star"):
             pats = [tp for tp in node.patterns if not isinstance(tp.p, Var)]
-            n_pat = len(pats)
-            enc = np.full((n_pat, 3), -1, np.int32)
-            for k, tp in enumerate(pats):
-                enc[k] = _enc_pattern(tp)
             src_on = np.zeros((self.d, self.m), bool)
             for s in node.sources:
                 src_on[s] = True
-            dev = self.mesh.device
-            rel, valid, ovf, _ = self._star_fn(n_pat)(
-                self.tables, self.trow,
-                torch.from_numpy(enc).to(dev).expand(self.d, self.m, n_pat, 3),
-                torch.from_numpy(src_on).to(dev))
+
+            def scans():
+                # each pattern's predicate rows in the selected sources'
+                # shards; the ranges come from the host, so no read
+                for tp in pats:
+                    rel, slots = self.pred_index.scan(self.tables, _enc_pattern(tp),
+                                                      src_on, self.cap, (0, 2))
+                    metrics.scan_slots += slots
+                    yield rel
+
+            rel, valid, ovf = self._subject_joins(scans())
             metrics.overflowed |= bool(self._host(ovf.any(), metrics))
         subj = pats[0].s.name if isinstance(pats[0].s, Var) else f"_c{id(node)}"
         cols = [subj] + [tp.o.name if isinstance(tp.o, Var) else f"_o{k}"

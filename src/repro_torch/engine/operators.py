@@ -18,6 +18,7 @@ flags tell the host that a capacity was too small.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BIG = 2**31 - 1                  # the sort key of invalid rows
@@ -102,6 +103,83 @@ def scan_pattern(table: torch.Tensor, trow: torch.Tensor, pattern,
     data = take_rows(table, idx)[..., list(out_cols)]
     data = torch.where(valid.unsqueeze(-1), data, 0)
     return data, valid, ovf
+
+
+def scan_rows(table: torch.Tensor, rows: torch.Tensor, live: torch.Tensor,
+              pattern: tuple, cap: int, out_cols: tuple):
+    """``scan_pattern`` over the candidate rows ``rows`` (..., L) of ``table``
+    (..., N, 3), of which ``live`` (..., L) marks the real ones; ``pattern``
+    is (s, p, o) as host ints, -1 a wildcard.  Where the live candidates
+    hold, in table order, every valid row that can match, the result is
+    ``scan_pattern``'s element for element, overflow included: the same
+    matches, kept in the same order up to ``cap``."""
+    cand = take_rows(table, rows)
+    m = live
+    for c, v in enumerate(pattern):
+        if v >= 0:
+            m = m & (cand[..., c] == v)
+    idx, valid, ovf = compact(m, cap)
+    data = take_rows(cand, idx)[..., list(out_cols)]
+    data = torch.where(valid.unsqueeze(-1), data, 0)
+    return data, valid, ovf
+
+
+class PredicateIndex:
+    """Each shard's valid rows ordered by (predicate, position): a stable
+    sort on the predicate, so the rows of one predicate are a range of
+    ``order`` and keep their table order within it.
+
+    ``pred`` and ``trow`` are (..., N) host arrays, the leading dimensions
+    the shards.  ``order`` (..., N) int32 lives on ``device``; the ranges
+    stay on the host (``ranges[p]``: start and count, (2, ...) int64), so a
+    scan knows its ranges without a read from the card."""
+
+    def __init__(self, pred: np.ndarray, trow: np.ndarray, device):
+        self.batch, self.n = pred.shape[:-1], pred.shape[-1]
+        pred, trow = pred.reshape(-1, self.n), trow.reshape(-1, self.n)
+        order = np.zeros(pred.shape, np.int32)
+        ranges: dict[int, np.ndarray] = {}
+        for b in range(len(pred)):
+            pos = np.flatnonzero(trow[b])
+            p = pred[b, pos]
+            srt = np.argsort(p, kind="stable")
+            order[b, :len(pos)] = pos[srt]
+            p = p[srt]
+            first = np.flatnonzero(np.diff(p, prepend=p[:1] - 1))
+            counts = np.diff(np.r_[first, len(p)])
+            for v, f, c in zip(p[first].tolist(), first.tolist(), counts.tolist()):
+                if v not in ranges:
+                    ranges[v] = np.zeros((2, len(pred)), np.int64)
+                ranges[v][:, b] = f, c
+        self.ranges = {v: r.reshape(2, *self.batch) for v, r in ranges.items()}
+        self.order = torch.from_numpy(order.reshape(*self.batch, self.n)).to(device)
+
+    def scan(self, table: torch.Tensor, pattern: tuple, on: np.ndarray, cap: int,
+             out_cols: tuple):
+        """``scan_pattern(table, trow & on[..., None], pattern, cap, out_cols)``
+        for ``pattern`` (s, p, o) host ints with ``p`` bound, comparing only
+        the rows of ``p`` in the shards where ``on`` (host bool, the batch
+        shape) holds, padded to a power of two.  Returns the relation and
+        the slots compared; a predicate that no such shard holds gives the
+        empty relation, with no scan."""
+        r = self.ranges.get(pattern[1])
+        count = np.where(on, r[1], 0) if r is not None else np.zeros(self.batch, np.int64)
+        width = int(count.max(initial=0))
+        dev = self.order.device
+        if width == 0:
+            return (torch.zeros((*self.batch, cap, len(out_cols)), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((*self.batch, cap), dtype=torch.bool, device=dev),
+                    torch.zeros(self.batch, dtype=torch.bool, device=dev)), 0
+        width = 1 << (width - 1).bit_length()
+        start, count = torch.from_numpy(np.stack([r[0], count])).to(dev).unsqueeze(-1)
+        j = torch.arange(width, device=dev)
+        rows = take(self.order, (start + j).clamp(max=self.n - 1)).long()
+        live = j < count
+        # the live candidates are p's rows: matching (s, -1, o) among them
+        # is matching (s, p, o) in the whole table, so p needs no compare
+        s, _, o = pattern
+        return scan_rows(table, rows, live, (s, -1, o), cap, out_cols), live.numel()
 
 
 def semi_bind(rel: torch.Tensor, valid: torch.Tensor, keys: torch.Tensor,

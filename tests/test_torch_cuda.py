@@ -974,6 +974,37 @@ def test_spmd_readback_copies_the_selected_rows_on_card(dev, tmp_path):
     assert sum(e["args"]["bytes"] for e in copies) == want_bytes
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ranged_scan_equals_full_scan_on_card(dev, seed):
+    """The star scan over a pattern's predicate rows (``PredicateIndex``)
+    equals ``scan_pattern`` over every slot on the card, in ``data``,
+    ``valid`` and ``overflow``: every case of
+    ``tests/test_torch_predicate_scan.py``, then on 16 shards of 65,536
+    slots at ``cap``s that some, none or all of the selected shards
+    overflow."""
+    from test_torch_predicate_scan import (SCANS, assert_same_relation, both_scans,
+                                           random_shards, selected)
+
+    table, trow = random_shards(seed)
+    for name, pattern, which, cap in SCANS:
+        got, _, want = both_scans(table, trow, pattern, selected(which, *trow.shape[:2]),
+                                  cap, dev)
+        assert got[0].is_cuda and want[0].is_cuda
+        assert_same_relation(got, want)
+    table, trow = random_shards(seed, d=4, m=4, n=1 << 16)
+    overflowed = []
+    for pattern, which, cap in (((-1, 11, -1), "not-1", 13_110),
+                                ((-1, 11, -1), "not-1", 1 << 15),
+                                ((2, 12, -1), "all", 3_280),
+                                ((-1, 14, 1), "all", 4096)):
+        got, slots, want = both_scans(table, trow, pattern, selected(which, 4, 4),
+                                      cap, dev)
+        assert_same_relation(got, want)
+        assert 0 < slots < table[..., 0].size
+        overflowed.append(int(want[2].sum()))
+    assert 0 < overflowed[0] < 12 and overflowed[1] == 0 and overflowed[3] == 4
+
+
 # --------------------------------------------------------------------------
 # LM training: the backward kernels of flash attention and the scan
 # --------------------------------------------------------------------------
